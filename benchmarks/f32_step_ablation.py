@@ -76,8 +76,8 @@ def main() -> None:
     import importlib
 
     quant_exp = importlib.import_module("benchmarks.quant_experiments")
-    from connectome_gnn_tpu.nn.layers import batch_norm_apply, batch_norm_init
-    from connectome_gnn_tpu.ops.banded import banded_spmm, gcn_normalize_banded
+    from connectome_gnn_jax.nn.layers import batch_norm_apply, batch_norm_init
+    from connectome_gnn_jax.ops.banded import banded_spmm, gcn_normalize_banded
 
     N, F, L = args.nodes, args.feat, 2
     a, E = quant_exp.build_band(N, args.degree, args.band, args.block)
@@ -102,7 +102,7 @@ def main() -> None:
     state = {"bn": list(bn_s)}
     opt = optax.adam(1e-3)
 
-    from connectome_gnn_tpu.ops.banded import BandedMatrix
+    from connectome_gnn_jax.ops.banded import BandedMatrix
 
     W = adj.bandwidth
 

@@ -47,8 +47,8 @@ sys.path.insert(0, ".")
 from benchmarks.quant_experiments import build_band  # noqa: E402
 from benchmarks.suite import chained_loop_time, device_loop_time  # noqa: E402
 
-from connectome_gnn_tpu.ops.banded import banded_spmm  # noqa: E402
-from connectome_gnn_tpu.ops.banded_quant import (  # noqa: E402
+from connectome_gnn_jax.ops.banded import banded_spmm  # noqa: E402
+from connectome_gnn_jax.ops.banded_quant import (  # noqa: E402
     QuantizedBandedMatrixFM,
     banded_spmm_quant_fm,
     quantize_band,

@@ -47,9 +47,9 @@ def main() -> None:
     p.add_argument("--groups", default="8,16,32,64,128")
     args = p.parse_args()
 
-    import connectome_gnn_tpu.ops.fused_pallas as fp
-    from connectome_gnn_tpu.data import collate_dense, generate_dataset
-    from connectome_gnn_tpu.models import GCNConnectome
+    import connectome_gnn_jax.ops.fused_pallas as fp
+    from connectome_gnn_jax.data import collate_dense, generate_dataset
+    from connectome_gnn_jax.models import GCNConnectome
 
     B = args.subjects
     graphs = generate_dataset(num_subjects=B, num_regions=84, seed=2)

@@ -50,13 +50,13 @@ rss_coo = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
 num_shards = 8
 t0 = time.perf_counter()
 if mode == "materialized":
-    from connectome_gnn_tpu.ops.banded import to_banded
-    from connectome_gnn_tpu.parallel import partition_banded
+    from connectome_gnn_jax.ops.banded import to_banded
+    from connectome_gnn_jax.parallel import partition_banded
 
     a = to_banded(senders, receivers, weights, num_nodes, block=block)
     shard = partition_banded(a, x, num_shards, shard_range=(0, 1))
 else:
-    from connectome_gnn_tpu.parallel import partition_banded_from_coo
+    from connectome_gnn_jax.parallel import partition_banded_from_coo
 
     W = -(-band_nodes // block)
     shard = partition_banded_from_coo(

@@ -4,7 +4,7 @@
 Every banded/hybrid win so far was measured on graphs GENERATED
 band-ordered.  This harness is the adversarial version: giant graphs
 arrive with scrambled node ids, and the one-call pipeline
-(``connectome_gnn_tpu.data.layout``) must rediscover the latent
+(``connectome_gnn_jax.data.layout``) must rediscover the latent
 structure — native RCM reordering, cost-model band/remainder split —
 and the rebuilt layout is then measured on chip against the raw scatter
 SpMM on the scrambled input.
@@ -43,11 +43,11 @@ import jax.numpy as jnp
 import numpy as np
 
 from benchmarks.suite import chained_loop_time
-from connectome_gnn_tpu.data import generate_spatial_graph
-from connectome_gnn_tpu.data.layout import build_layout, plan_layout
-from connectome_gnn_tpu.data.reorder import apply_ordering
-from connectome_gnn_tpu.ops.banded import BandedMatrix, banded_spmm, hybrid_spmm
-from connectome_gnn_tpu.ops.segment import coo_spmm
+from connectome_gnn_jax.data import generate_spatial_graph
+from connectome_gnn_jax.data.layout import build_layout, plan_layout
+from connectome_gnn_jax.data.reorder import apply_ordering
+from connectome_gnn_jax.ops.banded import BandedMatrix, banded_spmm, hybrid_spmm
+from connectome_gnn_jax.ops.segment import coo_spmm
 
 
 def _time_coo(s, r, w, x, num_nodes, iters, max_edges=8 << 20):

@@ -140,9 +140,9 @@ def run_dp(mesh, shard_range) -> dict:
     import jax
     import optax
 
-    from connectome_gnn_tpu.data import ConnectomeDataLoader, generate_dataset
-    from connectome_gnn_tpu.models import GCNConnectome
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.data import ConnectomeDataLoader, generate_dataset
+    from connectome_gnn_jax.models import GCNConnectome
+    from connectome_gnn_jax.parallel import (
         assemble_global,
         make_dp_train_step,
     )
@@ -195,9 +195,9 @@ def run_sampled_dp(mesh, shard_range) -> dict:
     import numpy as np
     import optax
 
-    from connectome_gnn_tpu.data import SampledNodeLoader, generate_spatial_graph
-    from connectome_gnn_tpu.models import NodeGCN
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.data import SampledNodeLoader, generate_spatial_graph
+    from connectome_gnn_jax.models import NodeGCN
+    from connectome_gnn_jax.parallel import (
         assemble_global,
         make_dp_train_step,
     )
@@ -253,11 +253,11 @@ def run_device_sampled_dp(mesh, shard_range) -> dict:
     import numpy as np
     import optax
 
-    from connectome_gnn_tpu.data import (
+    from connectome_gnn_jax.data import (
         device_sampled_gcn,
         generate_spatial_graph,
     )
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.parallel import (
         assemble_global,
         make_device_sampled_dp_step,
         replicate_csr,
@@ -325,12 +325,12 @@ def run_device_sampled_dp_scanned(mesh, shard_range) -> dict:
     import optax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from connectome_gnn_tpu.data import (
+    from connectome_gnn_jax.data import (
         device_sampled_gcn,
         generate_spatial_graph,
     )
-    from connectome_gnn_tpu.data.device_sampling import pack_epoch_sharded
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.data.device_sampling import pack_epoch_sharded
+    from connectome_gnn_jax.parallel import (
         make_device_sampled_dp_epoch_runner,
         replicate_csr,
     )
@@ -403,9 +403,9 @@ def run_graph_sharded(mesh, shard_range) -> dict:
     import numpy as np
     import optax
 
-    from connectome_gnn_tpu.data import generate_spatial_graph
-    from connectome_gnn_tpu.models.node_coo import BlockedNodeSAGE
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.data import generate_spatial_graph
+    from connectome_gnn_jax.models.node_coo import BlockedNodeSAGE
+    from connectome_gnn_jax.parallel import (
         CompactionConfig,
         ShardedGraphCSR,
         assemble_global,
@@ -476,7 +476,7 @@ def run_graph_sharded(mesh, shard_range) -> dict:
     # derive the IDENTICAL per-stage config — verified implicitly by
     # the drift comparison on the planned-config step losses appended
     # below, and explicitly by the recorded alphas.
-    from connectome_gnn_tpu.parallel import plan_compaction
+    from connectome_gnn_jax.parallel import plan_compaction
 
     rng_p = np.random.default_rng(7)
     probe = np.stack([
@@ -522,7 +522,7 @@ def run_graph_sharded(mesh, shard_range) -> dict:
 def _giant_graph(shortcut_frac: float):
     import numpy as np
 
-    from connectome_gnn_tpu.data import generate_spatial_graph
+    from connectome_gnn_jax.data import generate_spatial_graph
 
     g = generate_spatial_graph(
         16 * TOTAL_DEVICES, degree=4, band=12, seed=5,
@@ -538,8 +538,8 @@ def run_banded(mesh, shard_range) -> dict:
     import jax
     import optax
 
-    from connectome_gnn_tpu.ops import to_banded
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.ops import to_banded
+    from connectome_gnn_jax.parallel import (
         ShardedBandedGCN,
         assemble_global,
         make_sharded_banded_train_step,
@@ -593,8 +593,8 @@ def run_hybrid(mesh, shard_range) -> dict:
     import jax
     import optax
 
-    from connectome_gnn_tpu.ops import to_hybrid
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.ops import to_hybrid
+    from connectome_gnn_jax.parallel import (
         ShardedBandedGCN,
         assemble_global,
         make_sharded_banded_train_step,
@@ -648,9 +648,9 @@ def run_trainer_fit(mesh, shard_range) -> dict:
     mode over process-sharded loaders (train + evaluate each epoch)."""
     import jax
 
-    from connectome_gnn_tpu.data import ConnectomeDataLoader, generate_dataset
-    from connectome_gnn_tpu.models import GCNConnectome
-    from connectome_gnn_tpu.train import Trainer
+    from connectome_gnn_jax.data import ConnectomeDataLoader, generate_dataset
+    from connectome_gnn_jax.models import GCNConnectome
+    from connectome_gnn_jax.train import Trainer
 
     D = TOTAL_DEVICES
     lo, hi = shard_range
@@ -703,7 +703,7 @@ PROGRAMS = {
 
 
 def run_all(shard_range) -> dict:
-    from connectome_gnn_tpu.parallel import create_mesh
+    from connectome_gnn_jax.parallel import create_mesh
 
     import jax
 
@@ -741,7 +741,7 @@ def worker_main(args) -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.parallel import (
         initialize_distributed,
         local_shard_range,
     )

@@ -19,10 +19,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from connectome_gnn_tpu.data import SampledNodeLoader, generate_spatial_graph
-from connectome_gnn_tpu.data.sampled import collate_sampled, _sample_seed
-from connectome_gnn_tpu.models import NodeGCN
-from connectome_gnn_tpu.train import Trainer
+from connectome_gnn_jax.data import SampledNodeLoader, generate_spatial_graph
+from connectome_gnn_jax.data.sampled import collate_sampled, _sample_seed
+from connectome_gnn_jax.models import NodeGCN
+from connectome_gnn_jax.train import Trainer
 
 N = 1 << 20
 g = generate_spatial_graph(N, degree=38, band=512, seed=0, shortcut_frac=0.1)
@@ -50,7 +50,7 @@ chunk = rng.choice(N, 1024, replace=False).astype(np.int64)
 t_sample = timeit(lambda: sampler.sample(chunk, (10, 10), seed=1))
 
 # 1b. native core only
-from connectome_gnn_tpu import native
+from connectome_gnn_jax import native
 t_native = timeit(lambda: native.sample_subgraph(
     sampler._order, sampler._starts, sampler._ends, sampler._src,
     g.num_nodes, g.num_edges, chunk, np.asarray((10, 10), np.int64), 1))
@@ -63,7 +63,7 @@ t_collate = timeit(lambda: collate_sampled(
     node_budget=loader.node_budget, edge_budget=loader.edge_budget))
 
 # 2b. collate numpy-only (monkeypatch jnp.asarray to identity)
-import connectome_gnn_tpu.data.sampled as sm
+import connectome_gnn_jax.data.sampled as sm
 real_asarray = sm.jnp.asarray
 class FakeJnp:
     asarray = staticmethod(lambda x: x)

@@ -33,8 +33,8 @@ import numpy as np
 sys.path.insert(0, ".")
 from benchmarks.suite import chained_loop_time  # noqa: E402
 
-from connectome_gnn_tpu.ops.banded import BandedMatrix, banded_spmm  # noqa: E402
-from connectome_gnn_tpu.ops.banded_quant import (  # noqa: E402
+from connectome_gnn_jax.ops.banded import BandedMatrix, banded_spmm  # noqa: E402
+from connectome_gnn_jax.ops.banded_quant import (  # noqa: E402
     QuantizedBandedMatrix,
     banded_spmm_quant,
     banded_spmm_quant_xla,

@@ -44,8 +44,8 @@ sys.path.insert(0, ".")
 from benchmarks.quant_experiments import build_band  # noqa: E402
 from benchmarks.suite import chained_loop_time  # noqa: E402
 
-from connectome_gnn_tpu.ops.banded import BandedMatrix, banded_spmm  # noqa: E402
-from connectome_gnn_tpu.ops.banded_quant import (  # noqa: E402
+from connectome_gnn_jax.ops.banded import BandedMatrix, banded_spmm  # noqa: E402
+from connectome_gnn_jax.ops.banded_quant import (  # noqa: E402
     QuantizedBandedMatrix,
     banded_spmm_quant,
     quantize_band,
@@ -279,7 +279,7 @@ def banded_spmm_quant_manual(
     """Row-major wrapper over the production feature-major manual-DMA
     kernel (promoted to ``ops/banded_quant.py banded_spmm_quant_fm``
     after this diagnostic proved it out) — kept for the checks phase."""
-    from connectome_gnn_tpu.ops.banded_quant import (
+    from connectome_gnn_jax.ops.banded_quant import (
         banded_spmm_quant_fm,
         to_feature_major,
     )
@@ -383,7 +383,7 @@ def main() -> None:
     if "manual" in phases:
         # production feature-major kernel timed in its persistent layout:
         # xT loop state, band pre-transposed once outside the loop
-        from connectome_gnn_tpu.ops.banded_quant import (
+        from connectome_gnn_jax.ops.banded_quant import (
             QuantizedBandedMatrixFM,
             banded_spmm_quant_fm,
             to_feature_major,

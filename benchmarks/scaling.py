@@ -63,9 +63,9 @@ def bench_dp(devices, graphs_per_shard=32, iters=20):
     import jax.numpy as jnp
     import optax
 
-    from connectome_gnn_tpu.data import ConnectomeDataLoader, generate_dataset
-    from connectome_gnn_tpu.models import GCNConnectome
-    from connectome_gnn_tpu.parallel import create_mesh, make_dp_train_step, shard_batch
+    from connectome_gnn_jax.data import ConnectomeDataLoader, generate_dataset
+    from connectome_gnn_jax.models import GCNConnectome
+    from connectome_gnn_jax.parallel import create_mesh, make_dp_train_step, shard_batch
 
     results = {}
     d = 1
@@ -132,9 +132,9 @@ def _bench_edge_sharded(devices, *, hybrid, nodes_per_shard=16384,
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from connectome_gnn_tpu.data import generate_spatial_graph
-    from connectome_gnn_tpu.ops import to_banded, to_hybrid
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.data import generate_spatial_graph
+    from connectome_gnn_jax.ops import to_banded, to_hybrid
+    from connectome_gnn_jax.parallel import (
         ShardedBandedGCN,
         create_mesh,
         partition_banded,

@@ -47,7 +47,7 @@ ICI_GBPS = 45e9  # per-link ICI bandwidth used by docs/ARCHITECTURE.md
 
 def _abstract_csr(D, P, F, e_max, max_deg, num_nodes):
     """A ShardedGraphCSR of ShapeDtypeStructs — enough to trace."""
-    from connectome_gnn_tpu.parallel import ShardedGraphCSR
+    from connectome_gnn_jax.parallel import ShardedGraphCSR
 
     sds = jax.ShapeDtypeStruct
     return ShardedGraphCSR(
@@ -65,7 +65,7 @@ def _sampling_fn(mesh, fanout, compaction):
 
     from jax.sharding import PartitionSpec as P
 
-    from connectome_gnn_tpu.parallel.sharded_sampling import (
+    from connectome_gnn_jax.parallel.sharded_sampling import (
         sharded_device_sample_with_stats,
     )
 
@@ -91,7 +91,7 @@ def _sampling_fn(mesh, fanout, compaction):
 
 def counted_projection(configs) -> dict:
     """Counted per-device payloads at the ICI-projection shape."""
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.parallel import (
         count_collective_bytes,
         create_mesh,
         sharded_sampling_comm_model,
@@ -141,8 +141,8 @@ def timed_virtual_mesh(configs, *, n=131_072, degree=24, S=256,
     exchanges, on the 8-virtual-device CPU mesh (collectives are
     memcpys — payload-proportional, not ICI-accurate; the COUNTED
     section carries the wire projection)."""
-    from connectome_gnn_tpu.data import generate_spatial_graph
-    from connectome_gnn_tpu.parallel import ShardedGraphCSR, create_mesh
+    from connectome_gnn_jax.data import generate_spatial_graph
+    from connectome_gnn_jax.parallel import ShardedGraphCSR, create_mesh
 
     D = 8
     g = generate_spatial_graph(n, degree=degree, band=64, seed=7,
@@ -164,7 +164,7 @@ def timed_virtual_mesh(configs, *, n=131_072, degree=24, S=256,
     }
 
     # probe-planned per-stage config on THIS graph's real frontiers
-    from connectome_gnn_tpu.parallel import (
+    from connectome_gnn_jax.parallel import (
         plan_compaction,
         sharded_sampling_comm_model,
     )
@@ -213,7 +213,7 @@ def main() -> int:
     ap.add_argument("--out", default="SHARDED_EXCHANGE_r05.json")
     args = ap.parse_args()
 
-    from connectome_gnn_tpu.parallel import CompactionConfig
+    from connectome_gnn_jax.parallel import CompactionConfig
 
     configs = {
         "broadcast": None,

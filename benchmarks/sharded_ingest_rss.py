@@ -35,7 +35,7 @@ import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from connectome_gnn_tpu.parallel import ShardedGraphCSR
+from connectome_gnn_jax.parallel import ShardedGraphCSR
 
 mode, N = sys.argv[1], int(sys.argv[2])
 degree, band, F, D = 44, 512, 64, 8
@@ -62,7 +62,7 @@ def feat_reader(a, b):
 
 t0 = time.perf_counter()
 if mode == "materialized":
-    from connectome_gnn_tpu.data.graph import ConnectomeGraph
+    from connectome_gnn_jax.data.graph import ConnectomeGraph
 
     snds, recvs, ws = [], [], []
     for s, r, w in chunk_iter():

@@ -49,7 +49,7 @@ def main() -> None:
     so = np.argsort(senders, kind="stable")
     s_s, r_s, w_s = senders[so], receivers[so], weights[so]
 
-    from connectome_gnn_tpu.ops import coo_spmm
+    from connectome_gnn_jax.ops import coo_spmm
 
     variants = {}
 

@@ -80,18 +80,18 @@ def main() -> None:
     import importlib
 
     quant_exp = importlib.import_module("benchmarks.quant_experiments")
-    from connectome_gnn_tpu.models import BandedNodeGCN
-    from connectome_gnn_tpu.nn.layers import (
+    from connectome_gnn_jax.models import BandedNodeGCN
+    from connectome_gnn_jax.nn.layers import (
         batch_norm_apply_blocked,
         batch_norm_apply_fm,
     )
-    from connectome_gnn_tpu.ops.banded import (
+    from connectome_gnn_jax.ops.banded import (
         BandedMatrix,
         banded_spmm,
         gcn_normalize_banded,
         transpose_banded,
     )
-    from connectome_gnn_tpu.ops.banded_quant import (
+    from connectome_gnn_jax.ops.banded_quant import (
         QuantizedBandedMatrixFM,
         banded_spmm_quant_blocked,
         banded_spmm_quant_fm,
@@ -277,7 +277,7 @@ def main() -> None:
     dt = chained_loop_time(wmat, xT, it, Wm)
     record_pass("weight_matmul_fm", dt, 2 * F * N * 4)
 
-    from connectome_gnn_tpu.nn.layers import batch_norm_init
+    from connectome_gnn_jax.nn.layers import batch_norm_init
 
     bn_p, bn_s = batch_norm_init(F)
 
@@ -323,7 +323,7 @@ def main() -> None:
     # attributed.  These rows run in the SAME layout the f32 step uses
     # ([N, F] activations, masked BN over axis 0), so the f32
     # attribution below is a sum of measured rows, not a subtraction.
-    from connectome_gnn_tpu.nn.layers import batch_norm_apply
+    from connectome_gnn_jax.nn.layers import batch_norm_apply
 
     mask_n = jnp.ones((N,), bool)
 

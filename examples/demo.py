@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""connectome-gnn-tpu demo.
+"""connectome-gnn-jax demo.
 
 End-to-end example mirroring the reference suite's demo narrative
 (reference ``examples/demo.py``): generate synthetic connectome data, train
@@ -28,7 +28,7 @@ if "--cpu" in sys.argv:
 import jax  # noqa: E402
 import optax  # noqa: E402
 
-from connectome_gnn_tpu import (  # noqa: E402
+from connectome_gnn_jax import (  # noqa: E402
     ConnectomeDataLoader,
     GCNConnectome,
     GraphSAGEConnectome,

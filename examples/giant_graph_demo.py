@@ -41,13 +41,13 @@ def main() -> None:
     import numpy as np
     import optax
 
-    from connectome_gnn_tpu.data.reorder import (
+    from connectome_gnn_jax.data.reorder import (
         apply_ordering,
         bandwidth,
         reverse_cuthill_mckee,
     )
-    from connectome_gnn_tpu.models import BandedNodeGCN
-    from connectome_gnn_tpu.ops import to_banded
+    from connectome_gnn_jax.models import BandedNodeGCN
+    from connectome_gnn_jax.ops import to_banded
 
     print(f"JAX backend: {jax.default_backend()}")
 
@@ -56,7 +56,7 @@ def main() -> None:
     # ------------------------------------------------------------------
     n, deg, band = args.nodes, args.degree, args.band
     rng = np.random.default_rng(0)
-    from connectome_gnn_tpu.data import generate_spatial_graph
+    from connectome_gnn_jax.data import generate_spatial_graph
 
     graph = generate_spatial_graph(n, degree=deg, band=band, seed=0)
     print(f"graph: {n:,} nodes, {graph.num_edges:,} edges, band ±{band}")
@@ -149,7 +149,7 @@ def main() -> None:
     max_shards = max(a.num_blocks // max(a.bandwidth, 1), 1)
     num_dev = min(num_dev, max_shards)
     if num_dev > 1:
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.parallel import (
             ShardedBandedGCN,
             create_mesh,
             partition_banded,
@@ -175,7 +175,7 @@ def main() -> None:
     # ------------------------------------------------------------------
     # 6. Small-world variant: hybrid (band + shortcut remainder) sharding
     # ------------------------------------------------------------------
-    from connectome_gnn_tpu.ops import to_hybrid
+    from connectome_gnn_jax.ops import to_hybrid
 
     sw = generate_spatial_graph(n, degree=deg, band=band, seed=3,
                                 shortcut_frac=0.1)
@@ -189,7 +189,7 @@ def main() -> None:
     hx = jnp.asarray(sw.node_features)
     h_logits, _ = model.apply(params, state, h, hx)
     if num_dev > 1:
-        from connectome_gnn_tpu.parallel import partition_hybrid
+        from connectome_gnn_jax.parallel import partition_hybrid
 
         ph = partition_hybrid(h, sw.node_features, num_dev)
         out = sharded.forward(params, state, ph, mesh)
@@ -203,7 +203,7 @@ def main() -> None:
     # ------------------------------------------------------------------
     # 7. Minibatch sampling with the native NeighborSampler
     # ------------------------------------------------------------------
-    from connectome_gnn_tpu.data import NeighborSampler
+    from connectome_gnn_jax.data import NeighborSampler
 
     sampler = NeighborSampler(sw)
     t0 = time.perf_counter()
@@ -219,9 +219,9 @@ def main() -> None:
     # ------------------------------------------------------------------
     # 8. End-to-end sampled-minibatch training (seed-node supervision)
     # ------------------------------------------------------------------
-    from connectome_gnn_tpu.data import SampledNodeLoader
-    from connectome_gnn_tpu.models import NodeGCN
-    from connectome_gnn_tpu.train import Trainer
+    from connectome_gnn_jax.data import SampledNodeLoader
+    from connectome_gnn_jax.models import NodeGCN
+    from connectome_gnn_jax.train import Trainer
 
     src, dst = sw.edge_index
     msum = np.zeros(n)
@@ -259,7 +259,7 @@ def main() -> None:
     #    jitted program, and scan_epochs dispatches ONE program per
     #    training epoch (~8 KB of seeds is all that crosses the link).
     # ------------------------------------------------------------------
-    from connectome_gnn_tpu.data import device_sampled_sage
+    from connectome_gnn_jax.data import device_sampled_sage
 
     model = device_sampled_sage(
         sw, hidden_dim=64, fanout=(10, 10), dedup=False
@@ -291,7 +291,7 @@ def main() -> None:
     #     exchange was EXACT (bitwise = the broadcast oracle) this run.
     # ------------------------------------------------------------------
     if num_dev >= 2:
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.parallel import (
             CompactionConfig,
             create_mesh,
             graph_sharded_sage,
@@ -333,7 +333,7 @@ def main() -> None:
         #     buffers a power-law hub would otherwise price for every
         #     step (measured on chip in DEGREE_CAP_r05.json).
         # --------------------------------------------------------------
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.parallel import (
             plan_compaction,
             sharded_sampling_comm_model,
         )

@@ -4,14 +4,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from connectome_gnn_tpu.data import generate_connectome
-from connectome_gnn_tpu.data.reorder import (
+from connectome_gnn_jax.data import generate_connectome
+from connectome_gnn_jax.data.reorder import (
     apply_ordering,
     bandwidth,
     reverse_cuthill_mckee,
 )
-from connectome_gnn_tpu.ops import coo_spmm
-from connectome_gnn_tpu.ops.banded import BandedMatrix, banded_spmm, to_banded
+from connectome_gnn_jax.ops import coo_spmm
+from connectome_gnn_jax.ops.banded import BandedMatrix, banded_spmm, to_banded
 
 
 def random_banded_graph(n=500, degree=6, band=40, seed=0):
@@ -103,9 +103,9 @@ class TestBandedNodeGCN:
     def test_matches_coo_oracle(self):
         """Banded node GCN ≡ the COO GCN layer stack on the same graph."""
         import jax
-        from connectome_gnn_tpu.models.layers import gcn_layer_apply
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
-        from connectome_gnn_tpu.nn.layers import batch_norm_apply, dense_apply
+        from connectome_gnn_jax.models.layers import gcn_layer_apply
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.nn.layers import batch_norm_apply, dense_apply
 
         g = generate_connectome(num_regions=120, k=8, seed=7)
         model = BandedNodeGCN(in_channels=5, hidden_dim=32, num_layers=3)
@@ -136,7 +136,7 @@ class TestBandedNodeGCN:
 
     def test_train_mode_updates_state(self):
         import jax
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
 
         g = generate_connectome(num_regions=60, seed=8)
         model = BandedNodeGCN(in_channels=5, hidden_dim=16, num_layers=2,
@@ -157,8 +157,8 @@ class TestBandedNodeGCN:
 class TestShardedBandedGCN:
     def _setup(self, num_shards, block=16):
         import jax
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.parallel import (
             ShardedBandedGCN, create_mesh, partition_banded)
 
         senders, receivers, weights = random_banded_graph(
@@ -187,7 +187,7 @@ class TestShardedBandedGCN:
     def test_matches_with_nondividing_blocks(self, cpu_devices):
         # 480/16 = 30 blocks over 4 shards → 32 padded blocks, 8 per shard
         model, params, state, pb, mesh4, expected, a = self._setup(4)
-        from connectome_gnn_tpu.parallel import create_mesh
+        from connectome_gnn_jax.parallel import create_mesh
         mesh = create_mesh(shape=(4,), axis_names=("edge",),
                            devices=__import__("jax").devices()[:4])
         logits = model.forward(params, state, pb, mesh)
@@ -197,7 +197,7 @@ class TestShardedBandedGCN:
         )
 
     def test_bandwidth_exceeding_shard_raises(self):
-        from connectome_gnn_tpu.parallel import partition_banded
+        from connectome_gnn_jax.parallel import partition_banded
 
         senders, receivers, weights = random_banded_graph(
             n=128, degree=4, band=60, seed=13)
@@ -210,7 +210,7 @@ class TestShardedBandedGCN:
 class TestHybrid:
     def test_hybrid_spmm_matches_coo(self):
         """Small-world graph (shortcuts!) — the case pure banding rejects."""
-        from connectome_gnn_tpu.ops import hybrid_spmm, to_hybrid
+        from connectome_gnn_jax.ops import hybrid_spmm, to_hybrid
 
         g = generate_connectome(num_regions=200, k=10, seed=17)
         x = np.random.default_rng(0).standard_normal((200, 8)).astype(np.float32)
@@ -230,7 +230,7 @@ class TestHybrid:
         )
 
     def test_edge_conservation(self):
-        from connectome_gnn_tpu.ops import to_hybrid
+        from connectome_gnn_jax.ops import to_hybrid
 
         g = generate_connectome(num_regions=150, seed=18)
         h = to_hybrid(g.edge_index[0], g.edge_index[1], g.edge_weight, 150,
@@ -245,10 +245,10 @@ class TestHybrid:
 
     def test_node_gcn_on_hybrid_matches_coo_oracle(self):
         import jax
-        from connectome_gnn_tpu.models.layers import gcn_layer_apply
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
-        from connectome_gnn_tpu.nn.layers import batch_norm_apply, dense_apply
-        from connectome_gnn_tpu.ops import to_hybrid
+        from connectome_gnn_jax.models.layers import gcn_layer_apply
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.nn.layers import batch_norm_apply, dense_apply
+        from connectome_gnn_jax.ops import to_hybrid
 
         g = generate_connectome(num_regions=160, k=8, seed=19)
         model = BandedNodeGCN(in_channels=5, hidden_dim=16, num_layers=2)
@@ -280,7 +280,7 @@ class TestHybrid:
 
 class TestShardedBandedTraining:
     def _graph(self):
-        from connectome_gnn_tpu.data import generate_spatial_graph
+        from connectome_gnn_jax.data import generate_spatial_graph
 
         g = generate_spatial_graph(768, degree=6, band=40, seed=23)
         labels = (g.degree() > np.median(g.degree())).astype(np.int32)
@@ -289,7 +289,7 @@ class TestShardedBandedTraining:
     def test_loss_decreases(self, cpu_devices):
         import jax
         import optax
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.parallel import (
             ShardedBandedGCN, create_mesh, make_sharded_banded_train_step,
             partition_banded)
 
@@ -316,11 +316,11 @@ class TestShardedBandedTraining:
         """One sharded banded grad step == single-device BandedNodeGCN grad."""
         import jax
         import optax
-        from connectome_gnn_tpu.models import BandedNodeGCN
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.models import BandedNodeGCN
+        from connectome_gnn_jax.parallel import (
             ShardedBandedGCN, create_mesh, make_sharded_banded_train_step,
             partition_banded)
-        from connectome_gnn_tpu.nn.layers import batch_norm_apply
+        from connectome_gnn_jax.nn.layers import batch_norm_apply
 
         g, labels = self._graph()
         a = to_banded(g.edge_index[0], g.edge_index[1], g.edge_weight,
@@ -365,9 +365,9 @@ class TestBandedPallas:
     def test_matches_xla_oracle_interpret(self):
         """Pallas banded SpMM == XLA banded path (interpret mode on CPU)."""
         import jax.numpy as jnp
-        from connectome_gnn_tpu.data import generate_spatial_graph
-        from connectome_gnn_tpu.ops import banded_spmm, to_banded
-        from connectome_gnn_tpu.ops.banded_pallas import banded_spmm_pallas
+        from connectome_gnn_jax.data import generate_spatial_graph
+        from connectome_gnn_jax.ops import banded_spmm, to_banded
+        from connectome_gnn_jax.ops.banded_pallas import banded_spmm_pallas
 
         g = generate_spatial_graph(700, degree=6, band=40, num_features=16,
                                    seed=3)
@@ -386,7 +386,7 @@ class TestTransposeBanded:
         """transpose_banded(A) @ I == (A @ I)ᵀ on a random non-symmetric
         band (the cotangent operator of banded_spmm)."""
         import jax
-        from connectome_gnn_tpu.ops import transpose_banded
+        from connectome_gnn_jax.ops import transpose_banded
 
         rng = np.random.default_rng(0)
         n, block, W = 96, 16, 2
@@ -403,8 +403,8 @@ class TestTransposeBanded:
     def test_vjp_of_banded_spmm(self):
         """Aᵀ·ȳ through transpose_banded equals jax.vjp of banded_spmm."""
         import jax
-        from connectome_gnn_tpu.data import generate_spatial_graph
-        from connectome_gnn_tpu.ops import transpose_banded
+        from connectome_gnn_jax.data import generate_spatial_graph
+        from connectome_gnn_jax.ops import transpose_banded
 
         g = generate_spatial_graph(256, degree=5, band=24, num_features=8,
                                    seed=4)
@@ -426,8 +426,8 @@ class TestApplyNormalized:
     def test_matches_apply(self):
         """prepare + apply_normalized == apply (training-step hoisting)."""
         import jax
-        from connectome_gnn_tpu.data import generate_spatial_graph
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.data import generate_spatial_graph
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
 
         g = generate_spatial_graph(256, degree=5, band=24, seed=5)
         a = to_banded(g.edge_index[0], g.edge_index[1], g.edge_weight,
@@ -459,9 +459,9 @@ class TestBf16Band:
         import jax
         import jax.numpy as jnp
 
-        from connectome_gnn_tpu.data import generate_spatial_graph
-        from connectome_gnn_tpu.ops import to_banded
-        from connectome_gnn_tpu.ops.banded import banded_spmm
+        from connectome_gnn_jax.data import generate_spatial_graph
+        from connectome_gnn_jax.ops import to_banded
+        from connectome_gnn_jax.ops.banded import banded_spmm
 
         g = generate_spatial_graph(256, degree=6, band=24, seed=2)
         a = to_banded(g.edge_index[0], g.edge_index[1], g.edge_weight,
@@ -485,9 +485,9 @@ class TestBf16Band:
         import numpy as np
         import pytest
 
-        from connectome_gnn_tpu.data import generate_spatial_graph
-        from connectome_gnn_tpu.models import BandedNodeGCN
-        from connectome_gnn_tpu.ops import to_banded, to_hybrid
+        from connectome_gnn_jax.data import generate_spatial_graph
+        from connectome_gnn_jax.models import BandedNodeGCN
+        from connectome_gnn_jax.ops import to_banded, to_hybrid
 
         g = generate_spatial_graph(256, degree=6, band=24, seed=3)
         a = to_banded(g.edge_index[0], g.edge_index[1], g.edge_weight,

@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from connectome_gnn_tpu.data import generate_spatial_graph
-from connectome_gnn_tpu.ops import (
+from connectome_gnn_jax.data import generate_spatial_graph
+from connectome_gnn_jax.ops import (
     banded_spmm,
     banded_spmm_quant,
     banded_spmm_quant_xla,
@@ -143,9 +143,9 @@ class TestQuantKernel:
         assert (np.abs(quant - f32) <= bound).all()
 
     def test_quant_hybrid_spmm(self, cpu_devices):
-        from connectome_gnn_tpu.ops import to_hybrid
-        from connectome_gnn_tpu.ops.banded import hybrid_spmm
-        from connectome_gnn_tpu.ops.banded_quant import (
+        from connectome_gnn_jax.ops import to_hybrid
+        from connectome_gnn_jax.ops.banded import hybrid_spmm
+        from connectome_gnn_jax.ops.banded_quant import (
             hybrid_spmm_quant,
             quantize_hybrid,
         )
@@ -172,7 +172,7 @@ class TestFeatureMajorKernel:
 
     @pytest.mark.parametrize("rows_per_step", [2, 8, 16])
     def test_matches_rowmajor(self, cpu_devices, rows_per_step):
-        from connectome_gnn_tpu.ops import banded_spmm_quant_fm, to_feature_major
+        from connectome_gnn_jax.ops import banded_spmm_quant_fm, to_feature_major
 
         a, x = _banded()
         q = quantize_band(a)
@@ -188,7 +188,7 @@ class TestFeatureMajorKernel:
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
     def test_ragged_tail(self, cpu_devices):
-        from connectome_gnn_tpu.ops import banded_spmm_quant_fm, to_feature_major
+        from connectome_gnn_jax.ops import banded_spmm_quant_fm, to_feature_major
 
         a, x = _banded(n=600, block=64)
         q = quantize_band(a)
@@ -208,8 +208,8 @@ class TestTransposeQuantized:
         scales must match bit-for-bit (this identity is what lets
         training prep transpose the int8 band instead of the f32 one,
         ~4× less peak HBM at 1M nodes)."""
-        from connectome_gnn_tpu.ops import transpose_quantized
-        from connectome_gnn_tpu.ops.banded import transpose_banded
+        from connectome_gnn_jax.ops import transpose_quantized
+        from connectome_gnn_jax.ops.banded import transpose_banded
 
         a, _ = _banded(n=520, block=64)
         via_f32 = quantize_band(transpose_banded(a))
@@ -229,13 +229,13 @@ class TestW8A8Kernel:
     band quantization bound."""
 
     def test_matches_w8a8_emulation(self, cpu_devices):
-        from connectome_gnn_tpu.ops import (
+        from connectome_gnn_jax.ops import (
             banded_spmm_quant_fm_w8a8,
             quantize_activations_fm,
             to_feature_major,
         )
-        from connectome_gnn_tpu.ops.banded import banded_spmm
-        from connectome_gnn_tpu.ops.banded_quant import dequantize_band
+        from connectome_gnn_jax.ops.banded import banded_spmm
+        from connectome_gnn_jax.ops.banded_quant import dequantize_band
 
         a, x = _banded()
         q = quantize_band(a)
@@ -260,11 +260,11 @@ class TestW8A8Kernel:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
     def test_close_to_f32_oracle(self, cpu_devices):
-        from connectome_gnn_tpu.ops import (
+        from connectome_gnn_jax.ops import (
             banded_spmm_quant_fm_w8a8,
             to_feature_major,
         )
-        from connectome_gnn_tpu.ops.banded import banded_spmm
+        from connectome_gnn_jax.ops.banded import banded_spmm
 
         a, x = _banded()
         q_fm = to_feature_major(quantize_band(a))
@@ -276,11 +276,11 @@ class TestW8A8Kernel:
         assert rel < 3e-2, rel
 
     def test_ragged_tail(self, cpu_devices):
-        from connectome_gnn_tpu.ops import (
+        from connectome_gnn_jax.ops import (
             banded_spmm_quant_fm_w8a8,
             to_feature_major,
         )
-        from connectome_gnn_tpu.ops.banded import banded_spmm
+        from connectome_gnn_jax.ops.banded import banded_spmm
 
         a, x = _banded(n=600, block=64)
         q_fm = to_feature_major(quantize_band(a))
@@ -293,7 +293,7 @@ class TestW8A8Kernel:
         assert rel < 3e-2, rel
 
     def test_model_w8a8_serving(self, cpu_devices):
-        from connectome_gnn_tpu.models import BandedNodeGCN
+        from connectome_gnn_jax.models import BandedNodeGCN
 
         g = generate_spatial_graph(640, degree=6, band=40, seed=12)
         a = to_banded(
@@ -314,7 +314,7 @@ class TestW8A8Kernel:
         assert agree > 0.98, agree
 
     def test_w8a8_requires_feature_major(self, cpu_devices):
-        from connectome_gnn_tpu.models import BandedNodeGCN
+        from connectome_gnn_jax.models import BandedNodeGCN
 
         g = generate_spatial_graph(320, degree=6, band=40, seed=13)
         a = to_banded(
@@ -335,8 +335,8 @@ class TestQuantizedServing:
 
     @pytest.mark.parametrize("shortcut_frac", [0.0, 0.15])
     def test_node_gcn(self, cpu_devices, shortcut_frac):
-        from connectome_gnn_tpu.models import BandedNodeGCN
-        from connectome_gnn_tpu.ops import to_hybrid
+        from connectome_gnn_jax.models import BandedNodeGCN
+        from connectome_gnn_jax.ops import to_hybrid
 
         g = generate_spatial_graph(
             640, degree=6, band=40, seed=11, shortcut_frac=shortcut_frac
@@ -369,7 +369,7 @@ class TestQuantizedServing:
         assert agree > 0.99, agree
 
     def test_node_sage(self, cpu_devices):
-        from connectome_gnn_tpu.models import BandedNodeSAGE
+        from connectome_gnn_jax.models import BandedNodeSAGE
 
         g = generate_spatial_graph(640, degree=6, band=40, seed=12)
         a = to_banded(
@@ -395,7 +395,7 @@ class TestQuantizedServing:
         """feature_major=True (layout-persistent forward) vs the row-major
         serving path: same quantized operator, near-identical logits
         (contraction order differs through the transposed matmuls)."""
-        from connectome_gnn_tpu.models import BandedNodeGCN
+        from connectome_gnn_jax.models import BandedNodeGCN
 
         g = generate_spatial_graph(640, degree=6, band=40, seed=13)
         a = to_banded(
@@ -431,14 +431,14 @@ class TestQuantTrainable:
     """The int8-band TRAINING path: custom-VJP kernel + model gradients."""
 
     def _setup(self, n=640, block=64, feat=16):
-        from connectome_gnn_tpu.ops import gcn_normalize_banded
+        from connectome_gnn_jax.ops import gcn_normalize_banded
 
         a, x = _banded(seed=2, n=n, block=block, feat=feat)
         adj_norm, dinv = gcn_normalize_banded(a)
         return a, adj_norm, dinv, x
 
     def test_forward_is_the_fm_kernel(self, cpu_devices):
-        from connectome_gnn_tpu.ops import (
+        from connectome_gnn_jax.ops import (
             banded_spmm_quant_fm,
             banded_spmm_quant_fm_grad,
             quantize_band,
@@ -458,7 +458,7 @@ class TestQuantTrainable:
         """d/dx of the trainable quant SpMM == f32 banded gradient to ~1%
         (the backward reads a separately-quantized Aᵀ)."""
         import jax
-        from connectome_gnn_tpu.ops import (
+        from connectome_gnn_jax.ops import (
             banded_spmm,
             banded_spmm_quant_fm_grad,
             quantize_band,
@@ -492,7 +492,7 @@ class TestQuantTrainable:
         f32 path at the quantization error scale."""
         import jax
         import optax
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
 
         a, adj_norm, dinv, x = self._setup()
         model = BandedNodeGCN(in_channels=16, hidden_dim=16, num_layers=2)
@@ -536,7 +536,7 @@ class TestQuantTrainable:
         """train=False through apply_quant_trainable == the serving
         apply_quantized fm path (same kernel, same eval BN)."""
         import jax
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
 
         a, _, _, x = self._setup()
         model = BandedNodeGCN(in_channels=16, hidden_dim=16, num_layers=2)
@@ -559,7 +559,7 @@ class TestQuantTrainable:
         trajectory — quantization error does not compound destructively."""
         import jax
         import optax
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
 
         a, adj_norm, dinv, x = self._setup(n=320, block=32)
         # learnable labels: sign of the aggregated first feature
@@ -608,14 +608,14 @@ class TestBlockedTrainable:
     whole-model outputs must match the fm path tightly."""
 
     def _setup(self, n=640, block=64, feat=16):
-        from connectome_gnn_tpu.ops import gcn_normalize_banded
+        from connectome_gnn_jax.ops import gcn_normalize_banded
 
         a, x = _banded(seed=2, n=n, block=block, feat=feat)
         adj_norm, dinv = gcn_normalize_banded(a)
         return a, adj_norm, dinv, x
 
     def test_forward_matches_fm_kernel(self, cpu_devices):
-        from connectome_gnn_tpu.ops.banded_quant import (
+        from connectome_gnn_jax.ops.banded_quant import (
             banded_spmm_quant_blocked,
             banded_spmm_quant_fm,
             from_blocked,
@@ -641,7 +641,7 @@ class TestBlockedTrainable:
         np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
     def test_vjp_matches_fm_path(self, cpu_devices):
-        from connectome_gnn_tpu.ops.banded_quant import (
+        from connectome_gnn_jax.ops.banded_quant import (
             banded_spmm_quant_blocked_grad,
             banded_spmm_quant_fm_grad,
             from_blocked,
@@ -691,7 +691,7 @@ class TestBlockedTrainable:
 
     def test_model_matches_fm_trainable(self, cpu_devices):
         import optax
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
 
         a, _, _, x = self._setup()
         model = BandedNodeGCN(in_channels=16, hidden_dim=16, num_layers=2)
@@ -725,7 +725,7 @@ class TestBlockedTrainable:
             )
 
     def test_blocked_logits_match_fm_eval(self, cpu_devices):
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
 
         a, _, _, x = self._setup()
         model = BandedNodeGCN(in_channels=16, hidden_dim=16, num_layers=2)

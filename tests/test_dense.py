@@ -4,14 +4,14 @@ import numpy as np
 import jax
 import pytest
 
-from connectome_gnn_tpu.data import (
+from connectome_gnn_jax.data import (
     ConnectomeDataLoader,
     collate_dense,
     collate_graphs,
     generate_dataset,
 )
-from connectome_gnn_tpu.models import GCNConnectome, GraphSAGEConnectome
-from connectome_gnn_tpu.train import Trainer
+from connectome_gnn_jax.models import GCNConnectome, GraphSAGEConnectome
+from connectome_gnn_jax.train import Trainer
 
 
 @pytest.fixture(scope="module")

@@ -24,20 +24,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from connectome_gnn_tpu.data import (
+from connectome_gnn_jax.data import (
     DeviceSeedLoader,
     device_sampled_gcn,
     generate_spatial_graph,
 )
-from connectome_gnn_tpu.data.device_sampling import SeedBatch
-from connectome_gnn_tpu.parallel import (
+from connectome_gnn_jax.data.device_sampling import SeedBatch
+from connectome_gnn_jax.parallel import (
     create_mesh,
     make_device_sampled_dp_eval_step,
     make_device_sampled_dp_step,
     make_dp_train_step,
     replicate_csr,
 )
-from connectome_gnn_tpu.train import Trainer, reference_adam
+from connectome_gnn_jax.train import Trainer, reference_adam
 
 
 def _task(n=512, degree=8, band=32, seed=0):
@@ -189,7 +189,7 @@ class TestDPStep:
         """The multiset (dedup=False) SAGE model composes with the DP
         step unchanged: explicit-csr shard_map step == generic
         make_dp_train_step on the same stacked batch."""
-        from connectome_gnn_tpu.data import device_sampled_sage
+        from connectome_gnn_jax.data import device_sampled_sage
 
         g, labels = _task()
         model = device_sampled_sage(

@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from connectome_gnn_tpu.data import (
+from connectome_gnn_jax.data import (
     DeviceGraphCSR,
     DeviceSeedLoader,
     SampledNodeLoader,
@@ -29,10 +29,10 @@ from connectome_gnn_tpu.data import (
     make_seed_batch,
     pack_epoch,
 )
-from connectome_gnn_tpu.data.sampled import collate_sampled
-from connectome_gnn_tpu.data.sampling import NeighborSampler
-from connectome_gnn_tpu.models import NodeGCN
-from connectome_gnn_tpu.train import Trainer
+from connectome_gnn_jax.data.sampled import collate_sampled
+from connectome_gnn_jax.data.sampling import NeighborSampler
+from connectome_gnn_jax.models import NodeGCN
+from connectome_gnn_jax.train import Trainer
 
 
 def _graph(n=500, degree=6, band=32, seed=0, shortcut_frac=0.2):
@@ -433,7 +433,7 @@ class TestMultisetMode:
     the node-wise GraphSAGE estimator."""
 
     def test_keep_all_eval_logits_match_dedup(self):
-        from connectome_gnn_tpu.models import BlockedNodeSAGE, NodeSAGE
+        from connectome_gnn_jax.models import BlockedNodeSAGE, NodeSAGE
 
         g = _graph()
         csr = DeviceGraphCSR.from_graph(g)
@@ -480,7 +480,7 @@ class TestMultisetMode:
         assert len(set(s[real].tolist())) == real.sum()
 
     def test_trainer_learns_multiset_sage(self):
-        from connectome_gnn_tpu.data import device_sampled_sage
+        from connectome_gnn_jax.data import device_sampled_sage
 
         g = _graph(n=1024, degree=6, shortcut_frac=0.1)
         src, dst = g.edge_index
@@ -506,7 +506,7 @@ class TestMultisetMode:
         """The multiset model must compose with make_epoch_runner
         unchanged (suite config SME = cheapest sampler x cheapest
         dispatch): scanned epoch == stepwise Trainer epoch."""
-        from connectome_gnn_tpu.data import device_sampled_sage
+        from connectome_gnn_jax.data import device_sampled_sage
 
         g = _graph(n=400, degree=6)
         labels = (np.arange(400) % 2).astype(np.int32)
@@ -583,7 +583,7 @@ class TestBlockedAggregation:
 
         import optax
 
-        from connectome_gnn_tpu.models import BlockedNodeGCN
+        from connectome_gnn_jax.models import BlockedNodeGCN
 
         _, _, b = self._sampled()
         model = BlockedNodeGCN(in_channels=5, hidden_dim=16, num_layers=2)
@@ -613,7 +613,7 @@ class TestBlockedAggregation:
 
         import optax
 
-        from connectome_gnn_tpu.models import BlockedNodeSAGE
+        from connectome_gnn_jax.models import BlockedNodeSAGE
 
         _, _, b = self._sampled()
         model = BlockedNodeSAGE(in_channels=5, hidden_dim=16, num_layers=2)
@@ -639,7 +639,7 @@ class TestBlockedAggregation:
             assert jnp.allclose(a, c, rtol=1e-4, atol=1e-5)
 
     def test_sage_trainer_learns_through_blocked_path(self):
-        from connectome_gnn_tpu.data import device_sampled_sage
+        from connectome_gnn_jax.data import device_sampled_sage
 
         g = _graph(n=1024, degree=6, shortcut_frac=0.1)
         src, dst = g.edge_index

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from connectome_gnn_tpu.data import generate_connectome
-from connectome_gnn_tpu.models.layers import gcn_layer_apply
-from connectome_gnn_tpu.nn.layers import batch_norm_apply, dense_apply
-from connectome_gnn_tpu.parallel import (
+from connectome_gnn_jax.data import generate_connectome
+from connectome_gnn_jax.models.layers import gcn_layer_apply
+from connectome_gnn_jax.nn.layers import batch_norm_apply, dense_apply
+from connectome_gnn_jax.parallel import (
     EdgePartitionedGCN,
     create_mesh,
     partition_graph,
@@ -101,7 +101,7 @@ class TestEdgePartitionedGCN:
 class TestPartitionedTraining:
     def test_train_step_reduces_loss(self, giant_graph, cpu_devices):
         import optax
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.parallel import (
             create_mesh, make_partitioned_train_step, partition_graph)
 
         labels = (giant_graph.degree() > np.median(giant_graph.degree())).astype(np.int32)
@@ -125,7 +125,7 @@ class TestPartitionedTraining:
     def test_train_step_grads_match_single_device(self, giant_graph, cpu_devices):
         """One partitioned grad step == the equivalent unpartitioned grad."""
         import optax
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.parallel import (
             create_mesh, make_partitioned_train_step, partition_graph)
 
         labels = np.arange(giant_graph.num_nodes) % 2
@@ -143,8 +143,8 @@ class TestPartitionedTraining:
 
         # single-device oracle: same loss function over the whole graph,
         # train-mode BN (global stats == psummed shard stats)
-        from connectome_gnn_tpu.models.layers import gcn_layer_apply
-        from connectome_gnn_tpu.nn.layers import batch_norm_apply, dense_apply
+        from connectome_gnn_jax.models.layers import gcn_layer_apply
+        from connectome_gnn_jax.nn.layers import batch_norm_apply, dense_apply
 
         order = np.argsort(giant_graph.edge_index[1], kind="stable")
         senders = jnp.asarray(giant_graph.edge_index[0][order])
@@ -182,7 +182,7 @@ class TestPartitionedTraining:
 
 def sage_oracle_forward(model, params, state, graph):
     """Unpartitioned single-device SAGE forward with identical numerics."""
-    from connectome_gnn_tpu.models.layers import sage_layer_apply
+    from connectome_gnn_jax.models.layers import sage_layer_apply
 
     order = np.argsort(graph.edge_index[1], kind="stable")
     senders = jnp.asarray(graph.edge_index[0][order])
@@ -202,7 +202,7 @@ class TestEdgePartitionedSAGE:
     """The irregular-partitioned family's SAGE twin (round-1 review #5)."""
 
     def test_matches_unpartitioned_oracle(self, giant_graph, cpu_devices):
-        from connectome_gnn_tpu.parallel import EdgePartitionedSAGE
+        from connectome_gnn_jax.parallel import EdgePartitionedSAGE
 
         mesh = create_mesh(axis_names=("edge",))
         model = EdgePartitionedSAGE(
@@ -220,8 +220,8 @@ class TestEdgePartitionedSAGE:
     def test_train_step_grads_match_single_device(self, giant_graph, cpu_devices):
         import optax
 
-        from connectome_gnn_tpu.models.layers import sage_layer_apply
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.models.layers import sage_layer_apply
+        from connectome_gnn_jax.parallel import (
             EdgePartitionedSAGE, make_partitioned_train_step)
 
         labels = np.arange(giant_graph.num_nodes) % 2
@@ -275,7 +275,7 @@ class TestExchangeVolume:
         """The point of the halo-ization: on a receiver-local graph the
         per-layer exchange volume D·D·U is far below the all-gather's
         D·(D-1)·P_local (documented traffic ratio, round-1 review #5)."""
-        from connectome_gnn_tpu.data import generate_spatial_graph
+        from connectome_gnn_jax.data import generate_spatial_graph
 
         g = generate_spatial_graph(4096, degree=8, band=64, seed=0)
         pg = partition_graph(g, 8)

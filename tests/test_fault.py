@@ -19,10 +19,10 @@ import numpy as np
 import jax
 import pytest
 
-from connectome_gnn_tpu.data import ConnectomeDataLoader, generate_dataset
-from connectome_gnn_tpu.models import GCNConnectome
-from connectome_gnn_tpu.train import PreemptionGuard, Trainer, reference_adam
-from connectome_gnn_tpu.train import fault
+from connectome_gnn_jax.data import ConnectomeDataLoader, generate_dataset
+from connectome_gnn_jax.models import GCNConnectome
+from connectome_gnn_jax.train import PreemptionGuard, Trainer, reference_adam
+from connectome_gnn_jax.train import fault
 
 
 def make_graphs(poison=False):
@@ -115,7 +115,7 @@ class TestNonFiniteGuard:
     @pytest.mark.slow
 
     def test_guard_on_dp_mesh(self, cpu_devices):
-        from connectome_gnn_tpu.parallel import create_mesh
+        from connectome_gnn_jax.parallel import create_mesh
 
         graphs = make_graphs(poison=True)
         trainer = make_trainer(guard=True, mesh=create_mesh(), dropout=0.0)
@@ -202,7 +202,7 @@ class TestElasticResume:
         """Checkpoint on one device, resume on an 8-device mesh: the DP
         step's shard-count-invariant numerics make recovery exact (up to
         f32 reduction order) even when the slice comes back elastic."""
-        from connectome_gnn_tpu.parallel import create_mesh
+        from connectome_gnn_jax.parallel import create_mesh
 
         ckpt = str(tmp_path / "ckpt")
         graphs = make_graphs()
@@ -239,7 +239,7 @@ class TestElasticResume:
 
 
 def _node_task(n=512, degree=8, band=32):
-    from connectome_gnn_tpu.data import generate_spatial_graph
+    from connectome_gnn_jax.data import generate_spatial_graph
 
     g = generate_spatial_graph(n, degree=degree, band=band, seed=0)
     src, dst = g.edge_index
@@ -261,8 +261,8 @@ class TestRound4ModeResume:
 
     def test_mesh_device_sampled_fit_resume_exact(self, tmp_path,
                                                   cpu_devices):
-        from connectome_gnn_tpu.data import device_sampled_gcn
-        from connectome_gnn_tpu.parallel import create_mesh
+        from connectome_gnn_jax.data import device_sampled_gcn
+        from connectome_gnn_jax.parallel import create_mesh
 
         ckpt = str(tmp_path / "ckpt")
         g, labels = _node_task()
@@ -307,7 +307,7 @@ class TestRound4ModeResume:
     def test_graph_sharded_resume_at_different_shard_count(
         self, tmp_path, cpu_devices
     ):
-        from connectome_gnn_tpu.parallel import create_mesh, graph_sharded_sage
+        from connectome_gnn_jax.parallel import create_mesh, graph_sharded_sage
 
         ckpt = str(tmp_path / "ckpt")
         g, labels = _node_task()

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import pytest
 
-from connectome_gnn_tpu.data import collate_dense, generate_dataset
-from connectome_gnn_tpu.models import GCNConnectome
-from connectome_gnn_tpu.ops.fused_pallas import fused_gcn_forward
+from connectome_gnn_jax.data import collate_dense, generate_dataset
+from connectome_gnn_jax.models import GCNConnectome
+from connectome_gnn_jax.ops.fused_pallas import fused_gcn_forward
 
 
 @pytest.fixture(scope="module")
@@ -84,8 +84,8 @@ class TestFusedGCN:
 
 class TestFusedSAGE:
     def test_matches_xla_path(self):
-        from connectome_gnn_tpu.models import GraphSAGEConnectome
-        from connectome_gnn_tpu.ops.fused_pallas import fused_sage_forward
+        from connectome_gnn_jax.models import GraphSAGEConnectome
+        from connectome_gnn_jax.ops.fused_pallas import fused_sage_forward
 
         graphs = generate_dataset(num_subjects=8, num_regions=20, seed=0)
         batch = collate_dense(graphs)
@@ -103,8 +103,8 @@ class TestFusedSAGE:
         )
 
     def test_single_layer(self):
-        from connectome_gnn_tpu.models import GraphSAGEConnectome
-        from connectome_gnn_tpu.ops.fused_pallas import fused_sage_forward
+        from connectome_gnn_jax.models import GraphSAGEConnectome
+        from connectome_gnn_jax.ops.fused_pallas import fused_sage_forward
 
         graphs = generate_dataset(num_subjects=4, num_regions=16, seed=2)
         batch = collate_dense(graphs)
@@ -124,8 +124,8 @@ class TestVmemRetry:
     def test_falls_back_to_smaller_divisor_and_caches(self):
         """A scoped-VMEM compile rejection retries with the next-smaller
         divisor of B; the proven group is cached per shape."""
-        from connectome_gnn_tpu.models import GCNConnectome
-        from connectome_gnn_tpu.ops import fused_pallas as fp
+        from connectome_gnn_jax.models import GCNConnectome
+        from connectome_gnn_jax.ops import fused_pallas as fp
 
         graphs = generate_dataset(num_subjects=8, num_regions=16, seed=3)
         batch = collate_dense(graphs)
@@ -160,8 +160,8 @@ class TestVmemRetry:
         fp._PROVEN_GROUPS.clear()
 
     def test_non_vmem_errors_propagate(self):
-        from connectome_gnn_tpu.models import GCNConnectome
-        from connectome_gnn_tpu.ops import fused_pallas as fp
+        from connectome_gnn_jax.models import GCNConnectome
+        from connectome_gnn_jax.ops import fused_pallas as fp
 
         graphs = generate_dataset(num_subjects=4, num_regions=16, seed=3)
         batch = collate_dense(graphs)

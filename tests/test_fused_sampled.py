@@ -19,11 +19,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from connectome_gnn_tpu import native
-from connectome_gnn_tpu.data import SampledNodeLoader, generate_spatial_graph
-from connectome_gnn_tpu.data.sampling import NeighborSampler
-from connectome_gnn_tpu.models import NodeGCN
-from connectome_gnn_tpu.train import Trainer
+from connectome_gnn_jax import native
+from connectome_gnn_jax.data import SampledNodeLoader, generate_spatial_graph
+from connectome_gnn_jax.data.sampling import NeighborSampler
+from connectome_gnn_jax.models import NodeGCN
+from connectome_gnn_jax.train import Trainer
 
 pytestmark = pytest.mark.skipif(
     not native.AVAILABLE, reason="native library not built"

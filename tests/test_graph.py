@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from connectome_gnn_tpu.data import (
+from connectome_gnn_jax.data import (
     ConnectomeBatch,
     ConnectomeDataLoader,
     ConnectomeGraph,
@@ -178,7 +178,7 @@ class TestLoader:
 
 class TestPrefetch:
     def test_prefetch_yields_same_batches(self):
-        from connectome_gnn_tpu.data.prefetch import PrefetchLoader
+        from connectome_gnn_jax.data.prefetch import PrefetchLoader
 
         graphs = [make_simple_graph(seed=s, label=s % 2) for s in range(12)]
         loader = ConnectomeDataLoader(graphs, batch_size=4, shuffle=False)
@@ -193,7 +193,7 @@ class TestPrefetch:
         assert [np.asarray(b.labels).tolist() for b in wrapped] == plain
 
     def test_prefetch_propagates_errors(self):
-        from connectome_gnn_tpu.data.prefetch import PrefetchIterator
+        from connectome_gnn_jax.data.prefetch import PrefetchIterator
 
         def bad():
             yield 1
@@ -207,7 +207,7 @@ class TestPrefetch:
             next(it)
 
     def test_prefetch_exhaustion_and_abandonment(self):
-        from connectome_gnn_tpu.data.prefetch import PrefetchIterator
+        from connectome_gnn_jax.data.prefetch import PrefetchIterator
 
         graphs = [make_simple_graph(seed=s) for s in range(4)]
         loader = ConnectomeDataLoader(graphs, batch_size=2, shuffle=False)
@@ -230,7 +230,7 @@ class TestPrefetch:
 class TestIO:
     def test_graph_from_adjacency(self):
         A = np.array([[0, 0.5, 0], [0.5, 0, 0.2], [0, 0.2, 0]], np.float32)
-        from connectome_gnn_tpu.data import graph_from_adjacency
+        from connectome_gnn_jax.data import graph_from_adjacency
 
         g = graph_from_adjacency(A, label=1, subject_id="s1")
         assert g.num_nodes == 3
@@ -240,14 +240,14 @@ class TestIO:
         assert g.label == 1
 
     def test_graph_from_adjacency_threshold(self):
-        from connectome_gnn_tpu.data import graph_from_adjacency
+        from connectome_gnn_jax.data import graph_from_adjacency
 
         A = np.array([[0, 0.5], [0.05, 0]], np.float32)
         g = graph_from_adjacency(A, threshold=0.1)
         assert g.num_edges == 1
 
     def test_dataset_roundtrip(self, tmp_path):
-        from connectome_gnn_tpu.data import load_dataset, save_dataset
+        from connectome_gnn_jax.data import load_dataset, save_dataset
 
         graphs = [make_simple_graph(num_nodes=4 + s, seed=s, label=s % 2) for s in range(3)]
         graphs[1].label = None
@@ -265,7 +265,7 @@ class TestIO:
 class TestToDevice:
     def test_to_device_roundtrip(self):
         import jax
-        from connectome_gnn_tpu.data import to_device
+        from connectome_gnn_jax.data import to_device
 
         graphs = [make_simple_graph(seed=s) for s in range(2)]
         batch = collate_graphs(graphs)

@@ -12,10 +12,10 @@ import numpy as np
 import optax
 import pytest
 
-from connectome_gnn_tpu.data import generate_spatial_graph
-from connectome_gnn_tpu.models import BandedNodeGCN, BandedNodeSAGE
-from connectome_gnn_tpu.ops import to_hybrid
-from connectome_gnn_tpu.parallel import (
+from connectome_gnn_jax.data import generate_spatial_graph
+from connectome_gnn_jax.models import BandedNodeGCN, BandedNodeSAGE
+from connectome_gnn_jax.ops import to_hybrid
+from connectome_gnn_jax.parallel import (
     ShardedBandedGCN,
     ShardedBandedSAGE,
     create_mesh,
@@ -147,8 +147,8 @@ class TestShardedHybridTraining:
         ppermute + remainder all_to_all in one program) must reproduce a
         single-device step on the block-diagonal hybrid cohort exactly —
         the equivalence-chain test the repo convention requires."""
-        from connectome_gnn_tpu.ops import hybrid_block_diag
-        from connectome_gnn_tpu.parallel import partition_hybrid_cohort
+        from connectome_gnn_jax.ops import hybrid_block_diag
+        from connectome_gnn_jax.parallel import partition_hybrid_cohort
 
         mesh = create_mesh(shape=(2, 4), axis_names=("data", "edge"))
         model = ShardedBandedGCN(
@@ -201,7 +201,7 @@ class TestShardedHybridTraining:
     def test_cohort_capacity_unification(self, cpu_devices):
         """Subjects whose derived remainder paddings differ must still
         stack (capacities are probed and pinned to the worst case)."""
-        from connectome_gnn_tpu.parallel import partition_hybrid_cohort
+        from connectome_gnn_jax.parallel import partition_hybrid_cohort
 
         subjects = [
             _graph(seed=60, shortcut_frac=0.05),

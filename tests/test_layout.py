@@ -11,21 +11,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from connectome_gnn_tpu.data import generate_spatial_graph
-from connectome_gnn_tpu.data.graph import ConnectomeGraph
-from connectome_gnn_tpu.data.layout import (
+from connectome_gnn_jax.data import generate_spatial_graph
+from connectome_gnn_jax.data.graph import ConnectomeGraph
+from connectome_gnn_jax.data.layout import (
     auto_layout,
     build_layout,
     plan_layout,
 )
-from connectome_gnn_tpu.data.reorder import apply_ordering
-from connectome_gnn_tpu.ops.banded import (
+from connectome_gnn_jax.data.reorder import apply_ordering
+from connectome_gnn_jax.ops.banded import (
     BandedMatrix,
     HybridMatrix,
     banded_spmm,
     hybrid_spmm,
 )
-from connectome_gnn_tpu.ops.segment import coo_spmm
+from connectome_gnn_jax.ops.segment import coo_spmm
 
 
 def _scramble(graph: ConnectomeGraph, seed: int = 7) -> tuple[ConnectomeGraph, np.ndarray]:
@@ -135,7 +135,7 @@ class TestPlanLayout:
 
 class TestSpectralOrdering:
     def test_valid_permutation_and_beats_rcm_on_small_world(self):
-        from connectome_gnn_tpu.data.reorder import (
+        from connectome_gnn_jax.data.reorder import (
             reverse_cuthill_mckee,
             spectral_ordering,
         )
@@ -160,7 +160,7 @@ class TestSpectralOrdering:
         assert rem_frac(sp_perm) < rem_frac(rcm_perm) / 2
 
     def test_components_stay_contiguous(self):
-        from connectome_gnn_tpu.data.reorder import spectral_ordering
+        from connectome_gnn_jax.data.reorder import spectral_ordering
 
         # two disjoint rings of 64
         n = 128
@@ -177,7 +177,7 @@ class TestSpectralOrdering:
         # much bandable mass as the (7x slower) LOBPCG eigensolve it
         # replaced -- both judged by out-of-band fraction, the quantity
         # plan_layout's cost model prices
-        from connectome_gnn_tpu.data.reorder import spectral_ordering
+        from connectome_gnn_jax.data.reorder import spectral_ordering
 
         g = generate_spatial_graph(
             8192, degree=8, band=256, seed=9, shortcut_frac=0.1
@@ -212,7 +212,7 @@ class TestSpectralOrdering:
         assert relax <= lobpcg + 0.08
 
     def test_iterates_are_all_valid(self):
-        from connectome_gnn_tpu.data.reorder import spectral_ordering
+        from connectome_gnn_jax.data.reorder import spectral_ordering
 
         g = generate_spatial_graph(2048, degree=8, band=128, seed=10,
                                    shortcut_frac=0.1)

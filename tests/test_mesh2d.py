@@ -4,7 +4,7 @@ The 2-D step trains a cohort of giant graphs jointly: subjects sharded
 over the ``data`` axis, each subject's row blocks sharded over the
 ``edge`` axis.  The single-device oracle is a plain BandedNodeGCN over the
 block-diagonal concatenation of the cohort
-(:func:`connectome_gnn_tpu.ops.banded.banded_block_diag`) — the sharded
+(:func:`connectome_gnn_jax.ops.banded.banded_block_diag`) — the sharded
 step must reproduce its loss AND its gradients exactly (sync-BN over both
 axes, globally normalized masked loss).
 """
@@ -15,9 +15,9 @@ import numpy as np
 import optax
 import pytest
 
-from connectome_gnn_tpu.data import generate_spatial_graph
-from connectome_gnn_tpu.ops import banded_block_diag, to_banded
-from connectome_gnn_tpu.parallel import (
+from connectome_gnn_jax.data import generate_spatial_graph
+from connectome_gnn_jax.ops import banded_block_diag, to_banded
+from connectome_gnn_jax.parallel import (
     ShardedBandedGCN,
     create_mesh,
     make_banded_train_step_2d,
@@ -51,7 +51,7 @@ class TestBlockDiag:
     def test_block_diag_is_exact(self):
         """Concat band == block-diagonal matrix: SpMM on the combined form
         equals per-part SpMMs stacked."""
-        from connectome_gnn_tpu.ops import banded_spmm
+        from connectome_gnn_jax.ops import banded_spmm
 
         subjects = _cohort()
         combined, valid = banded_block_diag([s[0] for s in subjects])
@@ -103,7 +103,7 @@ class TestTrainStep2D:
     def test_grads_match_block_diag_oracle(self, mesh2d):
         """One 2-D-sharded step == single-device step on the block-diagonal
         cohort (exact sync-BN over both mesh axes)."""
-        from connectome_gnn_tpu.models import BandedNodeGCN
+        from connectome_gnn_jax.models import BandedNodeGCN
 
         subjects = _cohort()
         model = ShardedBandedGCN(
@@ -158,8 +158,8 @@ class TestTrainStep2D:
     def test_one_d_step_unchanged_by_stats_axes_default(self, cpu_devices):
         """Regression: the 1-D sharded step (stats_axes default) still
         matches its single-device oracle after the stats_axes refactor."""
-        from connectome_gnn_tpu.models import BandedNodeGCN
-        from connectome_gnn_tpu.parallel import make_sharded_banded_train_step
+        from connectome_gnn_jax.models import BandedNodeGCN
+        from connectome_gnn_jax.parallel import make_sharded_banded_train_step
 
         a, x, labels = _cohort(num_subjects=1)[0]
         model = ShardedBandedGCN(

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from connectome_gnn_tpu.data import collate_graphs, generate_dataset
-from connectome_gnn_tpu.models import GCNConnectome, GraphSAGEConnectome
+from connectome_gnn_jax.data import collate_graphs, generate_dataset
+from connectome_gnn_jax.models import GCNConnectome, GraphSAGEConnectome
 
 
 @pytest.fixture(scope="module")

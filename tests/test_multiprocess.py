@@ -17,7 +17,7 @@ import sys
 import numpy as np
 import pytest
 
-from connectome_gnn_tpu.data import (
+from connectome_gnn_jax.data import (
     ConnectomeDataLoader,
     generate_dataset,
     generate_spatial_graph,
@@ -95,7 +95,7 @@ class TestPartitionerShardRange:
         return g, labels
 
     def test_partition_graph_range_is_a_slice(self):
-        from connectome_gnn_tpu.parallel import partition_graph
+        from connectome_gnn_jax.parallel import partition_graph
 
         g, labels = self._graph()
         full = partition_graph(g, 8, node_labels=labels)
@@ -107,8 +107,8 @@ class TestPartitionerShardRange:
                 np.testing.assert_array_equal(np.asarray(f)[lo:hi], p)
 
     def test_partition_banded_range_is_a_slice(self):
-        from connectome_gnn_tpu.ops import to_banded
-        from connectome_gnn_tpu.parallel import partition_banded
+        from connectome_gnn_jax.ops import to_banded
+        from connectome_gnn_jax.parallel import partition_banded
 
         g, labels = self._graph()
         a = to_banded(
@@ -124,8 +124,8 @@ class TestPartitionerShardRange:
                 np.testing.assert_array_equal(np.asarray(f)[lo:hi], p)
 
     def test_partition_hybrid_range_is_a_slice(self):
-        from connectome_gnn_tpu.ops import to_hybrid
-        from connectome_gnn_tpu.parallel import partition_hybrid
+        from connectome_gnn_jax.ops import to_hybrid
+        from connectome_gnn_jax.parallel import partition_hybrid
 
         g, labels = self._graph(shortcut_frac=0.25)
         h = to_hybrid(

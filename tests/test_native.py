@@ -9,7 +9,7 @@ missing g++): the numpy paths are then the production code.
 import numpy as np
 import pytest
 
-from connectome_gnn_tpu import native
+from connectome_gnn_jax import native
 
 pytestmark = pytest.mark.skipif(
     not native.AVAILABLE, reason="native library not built"
@@ -29,7 +29,7 @@ def _random_coo(n, e, seed, duplicates=True):
 
 class TestRCM:
     def _both(self, edge_index, n):
-        from connectome_gnn_tpu.data.reorder import (
+        from connectome_gnn_jax.data.reorder import (
             _rcm_numpy, reverse_cuthill_mckee)
 
         src = np.concatenate([edge_index[0], edge_index[1]]).astype(np.int64)
@@ -57,7 +57,7 @@ class TestRCM:
         assert sorted(got) == list(range(20))
 
     def test_reduces_bandwidth(self):
-        from connectome_gnn_tpu.data.reorder import bandwidth
+        from connectome_gnn_jax.data.reorder import bandwidth
 
         rng = np.random.default_rng(3)
         # ring + a few chords, scrambled labels
@@ -65,7 +65,7 @@ class TestRCM:
         ring = np.stack([np.arange(n), (np.arange(n) + 1) % n])
         perm = rng.permutation(n)
         edge_index = perm[ring]
-        from connectome_gnn_tpu.data.reorder import reverse_cuthill_mckee
+        from connectome_gnn_jax.data.reorder import reverse_cuthill_mckee
 
         p = reverse_cuthill_mckee(edge_index, n)
         inv = np.empty(n, np.int64)
@@ -98,7 +98,7 @@ class TestBandPack:
 
     def test_to_banded_uses_native(self):
         """End-to-end: to_banded output is identical regardless of path."""
-        from connectome_gnn_tpu.ops import to_banded
+        from connectome_gnn_jax.ops import to_banded
 
         n = 256
         rng = np.random.default_rng(2)
@@ -122,7 +122,7 @@ class TestDensePack:
     def test_collate_dense_unchanged(self):
         """Dense collation (now native-packed) still matches per-graph
         dense adjacency built independently."""
-        from connectome_gnn_tpu.data import collate_dense, generate_dataset
+        from connectome_gnn_jax.data import collate_dense, generate_dataset
 
         graphs = generate_dataset(num_subjects=4, num_regions=30, seed=5)
         batch = collate_dense(graphs)

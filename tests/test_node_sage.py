@@ -10,15 +10,15 @@ import numpy as np
 import optax
 import pytest
 
-from connectome_gnn_tpu.data import generate_connectome, generate_spatial_graph
-from connectome_gnn_tpu.models import BandedNodeSAGE
-from connectome_gnn_tpu.ops import to_banded, to_hybrid
+from connectome_gnn_jax.data import generate_connectome, generate_spatial_graph
+from connectome_gnn_jax.models import BandedNodeSAGE
+from connectome_gnn_jax.ops import to_banded, to_hybrid
 
 
 def _coo_oracle(model, params, state, g, train=False):
     """Reference chain: sage_layer_apply → eval BN → (no extra ReLU)."""
-    from connectome_gnn_tpu.models.layers import sage_layer_apply
-    from connectome_gnn_tpu.nn.layers import batch_norm_apply, dense_apply
+    from connectome_gnn_jax.models.layers import sage_layer_apply
+    from connectome_gnn_jax.nn.layers import batch_norm_apply, dense_apply
 
     order = np.argsort(g.edge_index[1], kind="stable")
     senders = jnp.asarray(g.edge_index[0][order])
@@ -62,7 +62,7 @@ class TestBandedNodeSAGE:
 
 class TestShardedBandedSAGE:
     def _setup(self):
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.parallel import (
             ShardedBandedSAGE, create_mesh, partition_banded)
 
         g = generate_spatial_graph(768, degree=6, band=40, seed=33)
@@ -90,7 +90,7 @@ class TestShardedBandedSAGE:
         )
 
     def test_training_matches_gradient_oracle(self, cpu_devices):
-        from connectome_gnn_tpu.parallel import make_sharded_banded_train_step
+        from connectome_gnn_jax.parallel import make_sharded_banded_train_step
 
         g, labels, a, model, params, state, mesh, pb = self._setup()
         opt = optax.sgd(1e-1)
@@ -126,7 +126,7 @@ class TestShardedBandedSAGE:
             )
 
     def test_sharded_training_loss_decreases(self, cpu_devices):
-        from connectome_gnn_tpu.parallel import make_sharded_banded_train_step
+        from connectome_gnn_jax.parallel import make_sharded_banded_train_step
 
         g, labels, a, model, params, state, mesh, pb = self._setup()
         opt = optax.adam(1e-2)
@@ -144,7 +144,7 @@ class TestShardedBandedSAGE:
         """Regression: shard_map-trained params must work in unsharded
         models (Explicit-typed meshes used to poison them with mesh
         shardings → ShardingTypeError in banded_spmm)."""
-        from connectome_gnn_tpu.parallel import make_sharded_banded_train_step
+        from connectome_gnn_jax.parallel import make_sharded_banded_train_step
 
         g, labels, a, model, params, state, mesh, pb = self._setup()
         opt = optax.adam(1e-2)

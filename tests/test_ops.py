@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from connectome_gnn_tpu.ops import (
+from connectome_gnn_jax.ops import (
     coo_spmm,
     gcn_normalize,
     graph_mean_pool,
@@ -160,7 +160,7 @@ class TestGCNNormalize:
 
 class TestSDDMM:
     def test_matches_dense(self):
-        from connectome_gnn_tpu.ops import sddmm
+        from connectome_gnn_jax.ops import sddmm
 
         rng = np.random.default_rng(5)
         n, e, f = 12, 30, 8
@@ -173,7 +173,7 @@ class TestSDDMM:
         assert np.allclose(out, expected, atol=1e-5)
 
     def test_gcn_norm_is_rank1_sddmm(self):
-        from connectome_gnn_tpu.ops import gcn_normalize, sddmm
+        from connectome_gnn_jax.ops import gcn_normalize, sddmm
 
         rng = np.random.default_rng(6)
         n, pairs = 10, 15

@@ -9,10 +9,10 @@ import numpy as np
 import jax
 import pytest
 
-from connectome_gnn_tpu.data import ConnectomeDataLoader, generate_dataset
-from connectome_gnn_tpu.models import GCNConnectome, GraphSAGEConnectome
-from connectome_gnn_tpu.parallel import create_mesh, stack_batches
-from connectome_gnn_tpu.train import Trainer, reference_adam
+from connectome_gnn_jax.data import ConnectomeDataLoader, generate_dataset
+from connectome_gnn_jax.models import GCNConnectome, GraphSAGEConnectome
+from connectome_gnn_jax.parallel import create_mesh, stack_batches
+from connectome_gnn_jax.train import Trainer, reference_adam
 
 
 @pytest.fixture(scope="module")

@@ -34,8 +34,8 @@ from connectome_gnn.synthetic import (  # noqa: E402
 
 import jax  # noqa: E402
 
-from connectome_gnn_tpu.data import collate_graphs, generate_dataset  # noqa: E402
-from connectome_gnn_tpu.models import (  # noqa: E402
+from connectome_gnn_jax.data import collate_graphs, generate_dataset  # noqa: E402
+from connectome_gnn_jax.models import (  # noqa: E402
     GCNConnectome,
     GraphSAGEConnectome,
     params_from_reference_state_dict,
@@ -59,7 +59,7 @@ class TestGeneratorParity:
         for seed in (0, 7, 42, 987654):
             ref = ref_generate_connectome(seed=seed)
             mine = __import__(
-                "connectome_gnn_tpu.data.synthetic", fromlist=["generate_connectome"]
+                "connectome_gnn_jax.data.synthetic", fromlist=["generate_connectome"]
             ).generate_connectome(seed=seed)
             assert np.array_equal(ref.edge_index.numpy(), mine.edge_index)
             assert np.array_equal(ref.edge_weight.numpy(), mine.edge_weight)
@@ -178,8 +178,8 @@ class TestDirectKernelParity:
     def test_torch_to_fused_logits(self, ref_cls, kernel_name):
         """torch eval logits == fused Pallas kernel logits (same weights,
         same subjects, dense layout, interpret mode)."""
-        import connectome_gnn_tpu.ops.fused_pallas as fp
-        from connectome_gnn_tpu.data import collate_dense
+        import connectome_gnn_jax.ops.fused_pallas as fp
+        from connectome_gnn_jax.data import collate_dense
 
         ref_graphs = ref_generate_dataset(num_subjects=8, num_regions=30, seed=21)
         my_graphs = generate_dataset(num_subjects=8, num_regions=30, seed=21)
@@ -214,13 +214,13 @@ class TestDirectKernelParity:
         """
         import jax.numpy as jnp
 
-        from connectome_gnn_tpu.data.reorder import (
+        from connectome_gnn_jax.data.reorder import (
             apply_ordering,
             reverse_cuthill_mckee,
         )
-        from connectome_gnn_tpu.data.synthetic import generate_connectome
-        from connectome_gnn_tpu.models.node_gcn import BandedNodeGCN
-        from connectome_gnn_tpu.ops.banded import to_hybrid
+        from connectome_gnn_jax.data.synthetic import generate_connectome
+        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
+        from connectome_gnn_jax.ops.banded import to_hybrid
 
         seed, H, L = 33, 32, 3
         ref_g = ref_generate_connectome(num_regions=60, seed=seed)
@@ -271,7 +271,7 @@ class TestTraitParity:
     def test_other_traits_bitwise(self, trait_idx):
         ref = ref_generate_connectome(seed=11, trait_idx=trait_idx)
         mine = __import__(
-            "connectome_gnn_tpu.data.synthetic", fromlist=["generate_connectome"]
+            "connectome_gnn_jax.data.synthetic", fromlist=["generate_connectome"]
         ).generate_connectome(seed=11, trait_idx=trait_idx)
         assert np.array_equal(ref.edge_index.numpy(), mine.edge_index)
         assert int(ref.label) == mine.label

@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from connectome_gnn_tpu.data import (
+from connectome_gnn_jax.data import (
     SampledNodeLoader,
     collate_sampled,
     fanout_budgets,
@@ -19,8 +19,8 @@ from connectome_gnn_tpu.data import (
     generate_spatial_graph,
     sample_subgraph,
 )
-from connectome_gnn_tpu.models import NodeGCN, NodeSAGE
-from connectome_gnn_tpu.train import Trainer
+from connectome_gnn_jax.models import NodeGCN, NodeSAGE
+from connectome_gnn_jax.train import Trainer
 
 
 def _learnable_graph(num_nodes=1024, degree=8, band=32, seed=0):
@@ -109,8 +109,8 @@ class TestFullGraphBatch:
     def test_full_batch_matches_plain_forward(self):
         """full_graph_batch is an identity sample: NodeGCN on it equals the
         COO layer stack run directly on the (un-reordered) graph."""
-        from connectome_gnn_tpu.models.layers import gcn_layer_apply
-        from connectome_gnn_tpu.nn.layers import batch_norm_apply, dense_apply
+        from connectome_gnn_jax.models.layers import gcn_layer_apply
+        from connectome_gnn_jax.nn.layers import batch_norm_apply, dense_apply
 
         g, labels = _learnable_graph(96)
         batch = full_graph_batch(g, labels)  # seeds = all nodes, order kept
@@ -256,7 +256,7 @@ class TestSampledDataParallel:
         step on that shard (psum-averaged grads, sync-BN, masked mean)."""
         import optax
 
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.parallel import (
             create_mesh,
             make_dp_train_step,
             shard_batch,
@@ -330,7 +330,7 @@ class TestSampledDataParallel:
         """BASELINE config 5 composed: sharded neighbor-sampled minibatch
         training over the mesh reaches the single-device sampled run's
         accuracy neighborhood."""
-        from connectome_gnn_tpu.parallel import create_mesh
+        from connectome_gnn_jax.parallel import create_mesh
 
         g, labels = _learnable_graph(1024)
         nodes = np.random.default_rng(0).permutation(g.num_nodes)

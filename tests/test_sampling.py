@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from connectome_gnn_tpu.data import generate_connectome
-from connectome_gnn_tpu.data.sampling import sample_subgraph
+from connectome_gnn_jax.data import generate_connectome
+from connectome_gnn_jax.data.sampling import sample_subgraph
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +54,7 @@ class TestProfiling:
     def test_trace_writes_profile(self, tmp_path):
         import jax.numpy as jnp
 
-        from connectome_gnn_tpu.utils.profiling import StepTimer, trace
+        from connectome_gnn_jax.utils.profiling import StepTimer, trace
 
         with trace(str(tmp_path)):
             x = jnp.ones((64, 64)) @ jnp.ones((64, 64))
@@ -67,7 +67,7 @@ class TestProfiling:
         assert produced  # a trace artifact was written
 
     def test_step_timer_summary(self):
-        from connectome_gnn_tpu.utils.profiling import StepTimer
+        from connectome_gnn_jax.utils.profiling import StepTimer
 
         t = StepTimer()
         for _ in range(3):
@@ -86,13 +86,13 @@ class TestNativeSampler:
     """sample_subgraph_fast: same contract as sample_subgraph, C++ loop."""
 
     def _graph(self, n=400, seed=21):
-        from connectome_gnn_tpu.data import generate_spatial_graph
+        from connectome_gnn_jax.data import generate_spatial_graph
 
         return generate_spatial_graph(n, degree=8, band=60, seed=seed,
                                       shortcut_frac=0.1)
 
     def test_structural_invariants(self):
-        from connectome_gnn_tpu.data import sample_subgraph_fast
+        from connectome_gnn_jax.data import sample_subgraph_fast
 
         g = self._graph()
         seeds = [3, 17, 17, 250]  # duplicate collapses like the numpy path
@@ -112,7 +112,7 @@ class TestNativeSampler:
         assert np.isfinite(sub.edge_weight).all()
 
     def test_deterministic_by_seed(self):
-        from connectome_gnn_tpu.data import sample_subgraph_fast
+        from connectome_gnn_jax.data import sample_subgraph_fast
 
         g = self._graph()
         a1, n1 = sample_subgraph_fast(g, [5, 9], [3, 3], seed=11)
@@ -127,7 +127,7 @@ class TestNativeSampler:
     def test_small_fanout_subsets_full_expansion(self):
         """With fanout >= max degree, fast and numpy paths must reach the
         exact same subgraph (no sampling happens → no RNG dependence)."""
-        from connectome_gnn_tpu.data import sample_subgraph, sample_subgraph_fast
+        from connectome_gnn_jax.data import sample_subgraph, sample_subgraph_fast
 
         g = self._graph(n=200)
         big = [100, 100]  # > max in-degree → keep everything reachable
@@ -139,12 +139,12 @@ class TestNativeSampler:
     def test_speedup_on_giant_graph(self):
         import time
 
-        from connectome_gnn_tpu import native
+        from connectome_gnn_jax import native
 
         if not native.AVAILABLE:
             pytest.skip("native library not built — fast path == numpy path")
 
-        from connectome_gnn_tpu.data import (
+        from connectome_gnn_jax.data import (
             generate_spatial_graph, sample_subgraph, sample_subgraph_fast)
 
         g = generate_spatial_graph(100_000, degree=12, band=200, seed=2)
@@ -166,7 +166,7 @@ class TestNativeSampler:
         assert fast * 1.5 < slow  # typically ≫2×
 
     def test_neighbor_sampler_amortizes_and_matches_one_shot(self):
-        from connectome_gnn_tpu.data import NeighborSampler, sample_subgraph_fast
+        from connectome_gnn_jax.data import NeighborSampler, sample_subgraph_fast
 
         g = self._graph()
         sampler = NeighborSampler(g)

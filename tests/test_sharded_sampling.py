@@ -23,14 +23,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from connectome_gnn_tpu.data import (
+from connectome_gnn_jax.data import (
     ConnectomeGraph,
     device_sample,
     DeviceGraphCSR,
     generate_spatial_graph,
 )
-from connectome_gnn_tpu.models.node_coo import BlockedNodeSAGE, NodeSAGE
-from connectome_gnn_tpu.parallel import (
+from connectome_gnn_jax.models.node_coo import BlockedNodeSAGE, NodeSAGE
+from connectome_gnn_jax.parallel import (
     CompactionConfig,
     ShardedGraphCSR,
     count_collective_bytes,
@@ -300,7 +300,7 @@ class TestKeepAllOracle:
 
         from jax.sharding import PartitionSpec as P
 
-        from connectome_gnn_tpu.parallel.sharded_sampling import (
+        from connectome_gnn_jax.parallel.sharded_sampling import (
             sharded_device_sample,
         )
 
@@ -371,7 +371,7 @@ def _sample_all(mesh, sg, seeds, keys, fanout, compaction):
 
     from jax.sharding import PartitionSpec as P
 
-    from connectome_gnn_tpu.parallel.sharded_sampling import (
+    from connectome_gnn_jax.parallel.sharded_sampling import (
         sharded_device_sample_with_stats,
     )
 
@@ -605,7 +605,7 @@ class TestCompactedExchange:
                 out_specs=P("data"),
             )
             def run(gs, sd, key_data, _comp=comp):
-                from connectome_gnn_tpu.parallel.sharded_sampling import (
+                from connectome_gnn_jax.parallel.sharded_sampling import (
                     sharded_device_sample,
                 )
 
@@ -758,7 +758,7 @@ class TestPerStageCompactionAndPlanner:
 
         from jax.sharding import PartitionSpec as P
 
-        from connectome_gnn_tpu.parallel.sharded_sampling import (
+        from connectome_gnn_jax.parallel.sharded_sampling import (
             sharded_sampling_census,
         )
 
@@ -830,7 +830,7 @@ class TestPerStageCompactionAndPlanner:
     def test_plan_compaction_exact_and_cheaper_than_default(
         self, cpu_devices
     ):
-        from connectome_gnn_tpu.parallel import plan_compaction
+        from connectome_gnn_jax.parallel import plan_compaction
 
         g = _graph(n=512)
         D = 4
@@ -875,8 +875,8 @@ class TestPerStageCompactionAndPlanner:
         """GraphShardedSampledModel.plan_compaction adopts the planned
         config, and the Trainer's cached steps re-key on it (stale
         steps built for the old capacities are not reused)."""
-        from connectome_gnn_tpu.parallel import graph_sharded_sage
-        from connectome_gnn_tpu.train import Trainer
+        from connectome_gnn_jax.parallel import graph_sharded_sage
+        from connectome_gnn_jax.train import Trainer
 
         g = _graph(n=512)
         labels = np.zeros(512, np.int32)
@@ -903,7 +903,7 @@ class TestPerStageCompactionAndPlanner:
         assert all(k[1] == cfg for k in keys)
 
     def test_plan_compaction_validates_seed_shape(self, cpu_devices):
-        from connectome_gnn_tpu.parallel import plan_compaction
+        from connectome_gnn_jax.parallel import plan_compaction
 
         g = _graph()
         mesh = create_mesh(devices=cpu_devices[:4])
@@ -967,8 +967,8 @@ class TestTrainerGraphSharded:
     the replicated device-sampled path."""
 
     def test_trainer_fit_learns_one_hop_task(self, cpu_devices):
-        from connectome_gnn_tpu.parallel import graph_sharded_sage
-        from connectome_gnn_tpu.train import Trainer
+        from connectome_gnn_jax.parallel import graph_sharded_sage
+        from connectome_gnn_jax.train import Trainer
 
         g = _graph(n=512, degree=8, band=32)
         src, dst = g.edge_index
@@ -999,7 +999,7 @@ class TestTrainerGraphSharded:
         assert m["accuracy"] > 0.6
 
     def test_loader_defaults_to_partition_shards(self):
-        from connectome_gnn_tpu.parallel import graph_sharded_sage
+        from connectome_gnn_jax.parallel import graph_sharded_sage
 
         g = _graph()
         model = graph_sharded_sage(g, num_shards=4, fanout=(4, 4))
@@ -1010,8 +1010,8 @@ class TestTrainerGraphSharded:
         assert b.csr is None  # the graph rides as the step's argument
 
     def test_rejects_gcn_inner(self):
-        from connectome_gnn_tpu.models.node_coo import NodeGCN
-        from connectome_gnn_tpu.parallel import (
+        from connectome_gnn_jax.models.node_coo import NodeGCN
+        from connectome_gnn_jax.parallel import (
             GraphShardedSampledModel, ShardedGraphCSR,
         )
 

@@ -9,9 +9,9 @@ full-band pack, so every slab cell accumulates identically.
 import numpy as np
 import pytest
 
-from connectome_gnn_tpu.data import generate_spatial_graph
-from connectome_gnn_tpu.ops import to_banded, to_hybrid
-from connectome_gnn_tpu.parallel import (
+from connectome_gnn_jax.data import generate_spatial_graph
+from connectome_gnn_jax.ops import to_banded, to_hybrid
+from connectome_gnn_jax.parallel import (
     hybrid_remainder_capacities,
     partition_banded,
     partition_banded_from_coo,
@@ -69,7 +69,7 @@ class TestBandedFromCoo:
         )
 
     def test_numpy_fallback_matches_native(self, cpu_devices, monkeypatch):
-        from connectome_gnn_tpu import native
+        from connectome_gnn_jax import native
 
         if not native.AVAILABLE:
             pytest.skip("no native library to compare against")

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from connectome_gnn_tpu.data import (
+from connectome_gnn_jax.data import (
     NUM_REGIONS,
     REGION_NAMES,
     ConnectomeGraph,

@@ -5,9 +5,9 @@ import jax
 import optax
 import pytest
 
-from connectome_gnn_tpu.data import ConnectomeDataLoader, generate_dataset
-from connectome_gnn_tpu.models import GCNConnectome
-from connectome_gnn_tpu.train import (
+from connectome_gnn_jax.data import ConnectomeDataLoader, generate_dataset
+from connectome_gnn_jax.models import GCNConnectome
+from connectome_gnn_jax.train import (
     Trainer,
     reference_adam,
     restore_checkpoint,
@@ -127,7 +127,7 @@ class TestPredict:
         assert np.isclose(acc, metrics["accuracy"])
 
     def test_predict_sharded_loader(self, cpu_devices):
-        from connectome_gnn_tpu.parallel import create_mesh
+        from connectome_gnn_jax.parallel import create_mesh
 
         graphs = generate_dataset(num_subjects=20, num_regions=20, seed=4)
         mesh = create_mesh()
@@ -147,7 +147,7 @@ class TestPredict:
 @pytest.mark.slow
 class TestDPDenseLayout:
     def test_dp_training_on_dense_layout(self, cpu_devices):
-        from connectome_gnn_tpu.parallel import create_mesh
+        from connectome_gnn_jax.parallel import create_mesh
 
         graphs = generate_dataset(num_subjects=16, num_regions=20, seed=5)
         mesh = create_mesh()
@@ -304,7 +304,7 @@ class TestPredictFusedServing:
         """SAGE serving goes through its fused kernel too (VERDICT round-1
         Missing #3): interpret-mode fused prediction == XLA dense
         prediction, graph-for-graph."""
-        from connectome_gnn_tpu.models import GraphSAGEConnectome
+        from connectome_gnn_jax.models import GraphSAGEConnectome
 
         graphs = generate_dataset(num_subjects=16, num_regions=24, seed=12)
         model = GraphSAGEConnectome(in_channels=5, hidden_dim=32, num_layers=3)
@@ -334,8 +334,8 @@ class TestPredictFusedServing:
     def test_mesh_predict_fused_and_sharded(self, cpu_devices):
         """Mesh-mode serving: shard_map'ed predict with the fused kernel
         per shard matches single-device prediction (both model families)."""
-        from connectome_gnn_tpu.models import GraphSAGEConnectome
-        from connectome_gnn_tpu.parallel import create_mesh
+        from connectome_gnn_jax.models import GraphSAGEConnectome
+        from connectome_gnn_jax.parallel import create_mesh
 
         graphs = generate_dataset(num_subjects=32, num_regions=20, seed=14)
         mesh = create_mesh()
