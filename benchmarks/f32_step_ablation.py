@@ -1,13 +1,10 @@
 #!/usr/bin/env python3
-"""f32 train-step ablation: find the backward's unattributed ~14 ms.
+"""f32 train-step ablation: the in-context cost of each component.
 
-TRAIN_DIAG_r05 attributes the f32 giant-graph step's FORWARD fully
-(22.97 ms = 2 band passes + measured non-band rows) but the backward
-(44.6 ms) exceeds its row sum by ~14 ms, and a custom dense-VJP for
-the band SpMM changed nothing.  Isolated rows can under-count
-in-context costs (rematerialization, lost fusion), so this harness
-measures the step with components REMOVED one at a time — each delta
-is that component's true in-context cost, fwd+bwd included:
+Isolated rows (benchmarks/train_diag.py) can under-count in-context
+costs (rematerialization, lost fusion), so this harness measures the f32
+giant-graph train step with components REMOVED one at a time — each
+delta is that component's true in-context cost, fwd+bwd included:
 
   full              2-layer conv(BN,ReLU) + head CE + Adam (the 5t step)
   no_bn             BatchNorm replaced by identity
@@ -15,32 +12,11 @@ is that component's true in-context cost, fwd+bwd included:
   wmat_no_dw        stop_gradient(W): matmuls kept, dW reductions gone
   full_barrier      optimization_barrier between matmul and band pass
   wmat_vjp_barrier  custom matmul VJP with a barrier'd cotangent
-  full_band_bf16    band stored bf16 (XLA converts to bf16 anyway)
+  full_band_bf16    band stored bf16
   fwd_only          full forward, no grad (reference point)
 
-FINDINGS (committed in F32_ABLATION_r05.json, HLO-verified):
-  1. The band einsum lowers to a base-dilated CONVOLUTION whose f32
-     operands XLA converts to bf16 — the "f32" path's on-TPU matmul
-     precision is bf16-with-f32-accumulate regardless of storage, and
-     storing the band bf16 outright changes nothing in steady state
-     (the conversion is loop-invariant-hoisted).
-  2. The original autodiff backward paid ~1.3 GB layout-conversion
-     copies of the [NB, 2W+1, block, F] windows cotangent; the custom
-     per-diagonal VJP in ops/banded.py removes them: full step
-     66.9 -> 59.4 ms (the shipped fix).
-  3. The remaining ~16 ms of in-context dW cost is NOT the reduction
-     itself (standalone [1M,64]^T [1M,64] = 1.8 ms at any chunking/
-     dtype).  Five dodges were built and measured to fail: an
-     optimization barrier between matmul and band pass, a custom
-     matmul VJP with a barrier'd cotangent, bf16-stored bands, and a
-     fully BLOCKED-activation forward ([nb, block, F] end-to-end so
-     dW's operands share the conv's layout) — all within noise of the
-     59.4 ms step.  Retired as program-level critical-path cost around
-     the conv lowering, with the int8 fm path (27 ms/step) remaining
-     the recommended training kernel at this scale.
-
-Methodology: carried on-device loops, full-vs-quarter differencing,
-value-fetch sync (benchmarks/suite.py).  The earlier no_head /
+Methodology: carried on-device loops, full-vs-quarter differencing
+(benchmarks/suite.py).  The earlier no_head /
 band_only variants were removed: their loss paths left the readout
 parameter without a gradient, so XLA legally DCE'd the body.
 """
@@ -257,9 +233,7 @@ def main() -> None:
         )
         record(name, dt)
 
-    # the HLO shows XLA converts the f32 band to bf16 for the conv
-    # lowering anyway — store it bf16 outright: same on-TPU numerics,
-    # half the band traffic, no conversion copies
+    # the band stored bf16: half the band traffic
     dt = carried_loop_time(
         make_step(use_bn=True, use_wmat=True, use_head=True),
         (params, opt_state), (band_bf16, x),

@@ -15,7 +15,7 @@ Measures ``ru_maxrss`` of two ways to produce ONE process's shard of a
 Each mode runs in a fresh subprocess (so allocator high-water marks don't
 leak between modes) on the CPU backend.  Note the CPU backend can alias
 jax↔numpy buffers, which *understates* the materialized path's cost on a
-real TPU host (where ``np.asarray(a.band)`` is a genuine device→host
+real accelerator host (where ``np.asarray(a.band)`` is a genuine device→host
 copy); the streamed path's advantage is therefore a lower bound.
 
 Usage: python benchmarks/ingest_rss.py [--nodes 1048576] [--json]

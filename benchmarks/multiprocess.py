@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Multi-process (multi-host) dryrun harness with timing + traffic accounting.
 
-Validates the N-host half of the north star without a TPU pod: launches
+Validates the N-host half of the north star without a cluster: launches
 ``--procs`` REAL operating-system processes, each owning
 ``--devices-per-proc`` virtual CPU devices, joined into one JAX job via
 ``jax.distributed.initialize`` with gloo cross-process collectives — the
@@ -317,7 +317,8 @@ def run_device_sampled_dp_scanned(mesh, shard_range) -> dict:
     0.022 → 0.003 s/step) but each scanned optimizer step still runs
     its grad-allreduce + sync-BN collectives, and on gloo THAT latency
     dominates — multi-process lands near the stepwise program.  The
-    win on a real pod is the dispatch share (ICI collectives are ~µs;
+    win on real accelerators is the dispatch share (device-interconnect
+    collectives are ~µs;
     host dispatch is not)."""
     import jax
     import jax.numpy as jnp

@@ -1,14 +1,10 @@
 """Break down the end-to-end sampled step: sampler / subgraph build /
 collate-numpy / device conversion / train step — then the fused
-single-transfer producer for comparison.  Run with default backend (TPU)
-or JAX_PLATFORMS=cpu.
+single-transfer producer for comparison.  Run with the default backend
+(GPU) or JAX_PLATFORMS=cpu.
 
-Measured on the TPU rig at 1M nodes (2026-08-20, pre-fused): classic
-producer = 22.2 ms sample (9.2 native core + 13.0 Python relabel wrap)
-+ 17.5 ms collate (3.3 numpy + 14.2 jnp conversion/transfer of nine
-arrays incl. gathered features).  The fused path exists to delete the
-O(num_nodes) per-step costs and the feature shipping (see
-data/sampled.py::_build_sampled_batch)."""
+The fused path exists to delete the O(num_nodes) per-step costs and the
+feature shipping (see data/sampled.py::_build_sampled_batch)."""
 import os
 import sys
 import time

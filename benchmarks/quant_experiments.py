@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
-"""Quantized-band SpMM at the 1M-node north-star config (VERDICT #3).
+"""Quantized-band SpMM at the 1M-node config.
 
-Times, on the real TPU, at the exact 5d geometry (1M nodes / ~40M edges,
-±512-node band, block 256, F=64):
+Times, at the exact 5d geometry (1M nodes / ~40M edges, ±512-node band,
+block 256, F=64):
 
-1. f32 band via XLA einsum      — the round-1 production path (≈9.8 ms)
-2. int8 band via XLA            — dequantize + einsum (honest XLA try)
-3. int8 band via Pallas panels  — banded_spmm_quant at several R
+1. ``f32``      — f32 band via the XLA einsum (``banded_spmm``);
+2. ``quant``    — int8 band × bf16 activations, one scaled product per
+                  diagonal (``banded_spmm_quant``);
+3. ``dequant``  — dequantize to f32, then the f32 einsum
+                  (``banded_spmm_quant_xla``, the correctness oracle);
 
 plus a one-pass correctness check of each quant path against the f32
 output (relative Frobenius error ≲1% for int8 per-tile symmetric
 quantization of uniform weights; the per-entry analytic bound is
 asserted in tests/test_banded_quant.py).  Timing methodology =
-benchmarks/suite.py
-(chained normalized-feedback fori_loops, fetch sync, full-vs-quarter
-differencing); the f32 band buffer is deleted before the quant timings
-so HBM never holds two 5.4 GB bands at once.
+benchmarks/suite.py (chained normalized-feedback fori_loops,
+full-vs-quarter differencing); the f32 band buffer is deleted before the
+quant timings so device memory never holds two 5.4 GB bands at once.
 
 Usage: python benchmarks/quant_experiments.py [--iters 10]
 """
@@ -76,10 +77,9 @@ def main() -> None:
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--nodes", type=int, default=1 << 20)
     p.add_argument("--feat", type=int, default=64)
-    p.add_argument("--rows", type=int, nargs="*", default=[4, 8, 16])
     p.add_argument(
-        "--phases", default="checks,f32,pallas,xla",
-        help="comma list among checks,f32,pallas,xla (split long runs)",
+        "--phases", default="checks,f32,quant,dequant",
+        help="comma list among checks,f32,quant,dequant (split long runs)",
     )
     args = p.parse_args()
     phases = set(args.phases.split(","))
@@ -91,13 +91,12 @@ def main() -> None:
     q = quantize_band(a)
 
     if "checks" in phases:
-        # one-pass correctness: quant kernel + quant XLA vs f32
+        # one-pass correctness of both quant paths vs f32
         ref = banded_spmm(a, x0)
         ref_norm = float(jnp.linalg.norm(ref))
         for name, fn in [
-            ("quant_xla", lambda: banded_spmm_quant_xla(q, x0)),
-            ("quant_pallas_r8",
-             lambda: banded_spmm_quant(q, x0, rows_per_step=8)),
+            ("dequant", lambda: banded_spmm_quant_xla(q, x0)),
+            ("quant", lambda: banded_spmm_quant(q, x0)),
         ]:
             err = float(jnp.linalg.norm(fn() - ref)) / ref_norm
             print(json.dumps({"check": name, "rel_frobenius_err": err}))
@@ -122,27 +121,23 @@ def main() -> None:
             ),
         )
 
-    # free the f32 band before quant timings (HBM headroom)
+    # free the f32 band before quant timings (memory headroom)
     a.band.delete()
 
-    if "pallas" in phases:
-        for r in args.rows:
-            record(
-                f"quant_pallas_r{r}",
-                chained_loop_time(
-                    lambda v, bq, s, r=r: banded_spmm_quant(
-                        QuantizedBandedMatrix(
-                            bq, s, q.num_nodes, q.bandwidth
-                        ),
-                        v, rows_per_step=r,
-                    ),
-                    x0, args.iters, q.band_q, q.scales,
-                ),
-            )
-
-    if "xla" in phases:
+    if "quant" in phases:
         record(
-            "quant_xla",
+            "quant",
+            chained_loop_time(
+                lambda v, bq, s: banded_spmm_quant(
+                    QuantizedBandedMatrix(bq, s, q.num_nodes, q.bandwidth), v
+                ),
+                x0, args.iters, q.band_q, q.scales,
+            ),
+        )
+
+    if "dequant" in phases:
+        record(
+            "dequant",
             chained_loop_time(
                 lambda v, bq, s: banded_spmm_quant_xla(
                     QuantizedBandedMatrix(bq, s, q.num_nodes, q.bandwidth), v
@@ -151,19 +146,17 @@ def main() -> None:
             ),
         )
 
-    pallas_keys = [k for k in results if k.startswith("quant_pallas")]
-    if pallas_keys and "f32_xla" in results:
-        best = min(pallas_keys, key=lambda k: results[k]["ms_per_spmm"])
+    if "quant" in results and "f32_xla" in results:
         print(json.dumps({
             "summary": {
+                "device_kind": jax.devices()[0].device_kind,
                 "num_nodes": args.nodes,
                 "num_edges": E,
                 "f32_xla_ms": results["f32_xla"]["ms_per_spmm"],
-                "best_quant": best,
-                "best_quant_ms": results[best]["ms_per_spmm"],
-                "best_quant_edges_per_s": results[best]["edges_per_s"],
+                "quant_ms": results["quant"]["ms_per_spmm"],
+                "quant_edges_per_s": results["quant"]["edges_per_s"],
                 "speedup_vs_f32": results["f32_xla"]["ms_per_spmm"]
-                / results[best]["ms_per_spmm"],
+                / results["quant"]["ms_per_spmm"],
             }
         }))
 

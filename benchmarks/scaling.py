@@ -12,12 +12,11 @@ parallel modes:
 * ``hybrid`` — banded halo + all_to_all shortcut-remainder exchange
                (small-world giant graphs).
 
-On this environment only one real TPU chip is visible, so multi-device
-rows use virtual CPU devices (run with
+With ``--cpu`` the multi-device rows use virtual CPU devices (run with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8 ... --cpu``) —
-exercising the exact sharding/collective program that a pod slice would
-run, with CPU-grade absolute numbers.  On a real multi-chip slice the same
-harness reports honest per-chip scaling.
+exercising the exact sharding/collective program that several GPUs
+would run, with CPU-grade absolute numbers.  On a multi-GPU host the
+same harness reports per-device scaling.
 
 Usage:
     python benchmarks/scaling.py --cpu --mode dp

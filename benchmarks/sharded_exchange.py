@@ -7,11 +7,11 @@ replaces the model with measurements:
 
 1. **Counted payloads** — `count_collective_bytes` walks the jaxpr of
    the ACTUAL sampling program (abstract trace: no memory, no devices
-   needed) at the ICI-projection shape (S=1024 seeds/device, fanout
+   needed) at the projection shape (S=1024 seeds/device, fanout
    10x10, F=64) for D=4 and D=8, for the broadcast exchange and two
    compacted operating points.  The analytic model is asserted equal to
-   the count (it is now validated, not just stated) and an ICI-time
-   projection at 45 GB/s is derived.
+   the count (it is now validated, not just stated) and a link-time
+   projection at NVLink's 450 GB/s each way is derived.
 2. **Timed steps** — on the 8-virtual-device CPU mesh, a mid-size
    spatial graph (into which the CPU backend's memcpy collectives give
    payload-proportional cost) runs the full sampling program both ways:
@@ -42,7 +42,8 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-ICI_GBPS = 45e9  # per-link ICI bandwidth used by docs/ARCHITECTURE.md
+#: NVLink bandwidth each way between two H100s of one host (NVIDIA data sheet).
+LINK_BYTES_PER_S = 450e9
 
 
 def _abstract_csr(D, P, F, e_max, max_deg, num_nodes):
@@ -90,7 +91,7 @@ def _sampling_fn(mesh, fanout, compaction):
 
 
 def counted_projection(configs) -> dict:
-    """Counted per-device payloads at the ICI-projection shape."""
+    """Counted per-device payloads at the projection shape."""
     from connectome_gnn_jax.parallel import (
         count_collective_bytes,
         create_mesh,
@@ -124,7 +125,7 @@ def counted_projection(configs) -> dict:
                 },
                 "model_bytes": model["per_device_bytes_per_step"],
                 "counted_equals_model": True,
-                "ici_ms_at_45GBps": counted["total"] / ICI_GBPS * 1e3,
+                "link_ms_at_450GBps": counted["total"] / LINK_BYTES_PER_S * 1e3,
             }
         base = rows["broadcast"]["counted_bytes_per_device_per_step"]
         for name in rows:
@@ -139,7 +140,7 @@ def timed_virtual_mesh(configs, *, n=131_072, degree=24, S=256,
                        fanout=(10, 10), steps=8) -> dict:
     """Steady-state ms/step of the full sampling program, both
     exchanges, on the 8-virtual-device CPU mesh (collectives are
-    memcpys — payload-proportional, not ICI-accurate; the COUNTED
+    memcpys — payload-proportional, not link-accurate; the COUNTED
     section carries the wire projection)."""
     from connectome_gnn_jax.data import generate_spatial_graph
     from connectome_gnn_jax.parallel import ShardedGraphCSR, create_mesh
@@ -255,7 +256,7 @@ def main() -> int:
             "(timed section: planned_config, exact on this fixture)",
             "CPU-mesh timings measure the COMPUTE side of compaction "
             "(sorts, schedule scatters, the dedup fan-out gather) plus "
-            "memcpy collectives - NOT ICI: a2/r2's extra rounds and "
+            "memcpy collectives - NOT NVLink: a2/r2's extra rounds and "
             "dedup's sort show as CPU cost here while the wire payload "
             "(the counted section) is what a pod pays; use counted "
             "bytes + 45 GB/s for the pod projection",

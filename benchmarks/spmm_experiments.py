@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Irregular giant-graph SpMM formulation experiments (real TPU).
+"""Irregular giant-graph SpMM formulation experiments (GPU).
 
-The scatter path for fully irregular graphs measures ~70 M edges/s
-(BASELINE config 5).  This script isolates WHERE the time goes and races
+This script isolates where the scatter path for fully irregular graphs
+(BASELINE config 5) spends its time and races
 alternative formulations, using the suite's hoisting-proof chained-loop
 methodology.  Variants:
 

@@ -1,30 +1,24 @@
 #!/usr/bin/env python3
-"""Giant-graph TRAIN-step teardown (VERDICT r3 #2 / weak #3).
+"""Giant-graph TRAIN-step teardown.
 
-SUITE_r03 left the training band configs far off the roofline the
-serving kernels hit (5t hbm_frac 0.575, 5tq 0.408 vs serving 5d 0.866 /
-w8a8-bare 0.97) with no per-pass attribution.  This harness decomposes
-the step the FM_DIAG way: each of the four band passes (fwd + transposed
-bwd × L layers) is timed individually through every available kernel,
-the non-band remainder (weight matmuls, BatchNorm, boundary relayout,
-loss/Adam) is timed as its own passes, and the full steps are re-timed
-so `step ≈ Σ parts` can be checked — anything unexplained is reported as
-`unattributed`.
+Decomposes the banded giant-graph train step: each of the four band
+passes (fwd + transposed bwd × L layers) is timed individually through
+every available band product, the non-band remainder (weight matmuls,
+BatchNorm, boundary relayout, loss/Adam) is timed as its own passes, and
+the full steps are re-timed so `step ≈ Σ parts` can be checked —
+anything unexplained is reported as `unattributed`.
 
-Kernels compared per band pass at the 1M-node config:
+Band products compared per pass at the 1M-node config:
   f32      banded_spmm (XLA einsum; bwd = transposed-band einsum)
-  fm       banded_spmm_quant_fm (int8 band, bf16 x, strided [F,N] DMA)
-  blocked  banded_spmm_quant_blocked (int8 band, contiguous [NB,F,block]
-           DMA — FM_DIAG_r03's fm_blocked, promoted to product this
-           round and wired into apply_quant_trainable_blocked)
+  fm       banded_spmm_quant_fm (int8 band, bf16 x, [F, N] activations)
   w8a8     banded_spmm_quant_fm_w8a8 (int8 band AND activations)
 
-Writes TRAIN_DIAG_r05.json (round 5 adds f32 ROW-MAJOR non-band rows
-so f32_5t's residual is attributed as a sum of measured rows).  Methodology: chained/carried on-device
-fori_loops with normalized feedback, value-fetch sync, full-vs-quarter
-differencing (benchmarks/suite.py).
+Writes ``--out`` (JSON).  Methodology: chained/carried on-device
+fori_loops with normalized feedback and full-vs-quarter differencing
+(benchmarks/suite.py); ``hbm_frac`` is modeled bytes over the device's
+published memory bandwidth (``suite.PEAKS``).
 
-Reference loop being scaled: /root/reference/connectome_gnn/train.py:41-54.
+Reference loop being scaled: the reference's train.py:41-54.
 """
 
 from __future__ import annotations
@@ -42,21 +36,21 @@ import numpy as np
 import optax
 
 from benchmarks.suite import (
-    PEAK_HBM_BPS,
     carried_loop_time,
     chained_loop_time,
     device_loop_time,
+    peaks,
 )
 
 
 def band_pass_bytes(q, feat, *, act_bytes=2, out_bytes=4, quant_x=0):
-    """Traffic model of one quantized band pass (R=32 window re-reads)."""
+    """Traffic model of one quantized band pass (one activation window
+    read per diagonal)."""
     W = q.bandwidth
     padded = q.num_blocks * q.block
-    R = 32
     return (
         q.band_qT.size + q.scales.size * 4
-        + (R + 2 * W) / R * padded * feat * act_bytes
+        + (2 * W + 1) * padded * feat * act_bytes
         + padded * feat * out_bytes
         + quant_x * padded * feat * 5
     )
@@ -64,7 +58,7 @@ def band_pass_bytes(q, feat, *, act_bytes=2, out_bytes=4, quant_x=0):
 
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--out", default="TRAIN_DIAG_r05.json")
+    p.add_argument("--out", default="chiprun_out/train_diag.json")
     p.add_argument("--nodes", type=int, default=1 << 20)
     p.add_argument("--degree", type=int, default=38)
     p.add_argument("--band", type=int, default=512)
@@ -73,18 +67,14 @@ def main() -> None:
     p.add_argument("--block", type=int, default=256)
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--step-iters", type=int, default=6)
-    p.add_argument("--interpret", action="store_true",
-                   help="Pallas interpreter (CPU smoke-testing only)")
     args = p.parse_args()
+    peak_bps = peaks()["hbm_bytes_per_s"]
 
     import importlib
 
     quant_exp = importlib.import_module("benchmarks.quant_experiments")
     from connectome_gnn_jax.models import BandedNodeGCN
-    from connectome_gnn_jax.nn.layers import (
-        batch_norm_apply_blocked,
-        batch_norm_apply_fm,
-    )
+    from connectome_gnn_jax.nn.layers import batch_norm_apply_fm
     from connectome_gnn_jax.ops.banded import (
         BandedMatrix,
         banded_spmm,
@@ -93,11 +83,9 @@ def main() -> None:
     )
     from connectome_gnn_jax.ops.banded_quant import (
         QuantizedBandedMatrixFM,
-        banded_spmm_quant_blocked,
         banded_spmm_quant_fm,
         banded_spmm_quant_fm_w8a8,
         quantize_band,
-        to_blocked,
         to_feature_major,
         transpose_quantized,
     )
@@ -105,8 +93,8 @@ def main() -> None:
     N, F, L, block = args.nodes, args.feat, args.layers, args.block
     it = args.iters
     results: dict = {
-        "round": 5,
         "harness": "benchmarks/train_diag.py",
+        "device_kind": jax.devices()[0].device_kind,
         "config": f"{N} nodes / {N * args.degree} edges, block={block}, "
                   f"F={F}, L={L}",
         "passes": {},
@@ -134,19 +122,18 @@ def main() -> None:
             "ms": dt * 1e3,
             "edges_per_s": E / dt,
             "model_gbps": bytes_model / dt / 1e9,
-            "hbm_frac": bytes_model / dt / PEAK_HBM_BPS,
+            "hbm_frac": bytes_model / dt / peak_bps,
         }
         print(f"# {name}: {dt*1e3:.3f} ms "
-              f"({bytes_model/dt/PEAK_HBM_BPS:.2f} of HBM peak)",
+              f"({bytes_model/dt/peak_bps:.2f} of memory peak)",
               file=sys.stderr, flush=True)
 
-    # ---- f32 band passes (the 5t kernels) -----------------------------
-    # HBM discipline at the 1M config: the f32 band is 5.37 GB, so the
-    # band and its transpose must NEVER be live together (16 GB chip —
-    # two bands + loop workspace OOMed the first run of this harness).
-    # Quantize first (int8 copies, 2.7 GB), then SWAP band↔bandᵀ via
-    # transpose+delete; transpose_banded is an involution so the
-    # original is recovered for the f32 full-step timing at the end.
+    # ---- f32 band passes (the 5t path) -------------------------------
+    # Memory discipline at the 1M config: the f32 band is 5.37 GB, so
+    # the band and its transpose are never live together.  Quantize
+    # first, then SWAP band↔bandᵀ via transpose+delete;
+    # transpose_banded is an involution so the original is recovered
+    # for the f32 full-step timing at the end.
     f32_band_bytes = adj_norm.band.size * 4
     f32_bytes = f32_band_bytes + (2 * W + 2) * padded * F * 4
     dt = chained_loop_time(
@@ -158,9 +145,8 @@ def main() -> None:
     # ---- f32 transposed pass (swap: only ONE f32 band live) -----------
     # The transpose runs as a DONATED jitted program: the eager
     # transpose materializes every per-diagonal temporary alongside
-    # input and output (~3x band = 16 GB at the 1M config — OOMed);
-    # under jit+donation XLA streams diagonals through the donated
-    # buffer and peak stays ~2x band.
+    # input and output (~3x band); under jit+donation XLA streams
+    # diagonals through the donated buffer and peak stays ~2x band.
     def _band_T(band):
         return transpose_banded(BandedMatrix(band, N, W)).band
 
@@ -187,12 +173,11 @@ def main() -> None:
     q_row.band_q.delete()
     qT_row.band_q.delete()
 
-    # ---- fm (strided) passes — the shipped 5tq kernels ----------------
+    # ---- fm passes — the 5tq path -------------------------------------
     fm_bytes = band_pass_bytes(q, F)
     dt = chained_loop_time(
         lambda vT, bq, s: banded_spmm_quant_fm(
             QuantizedBandedMatrixFM(bq, s, N, W), vT,
-            interpret=args.interpret,
         ),
         xT, it, q.band_qT, q.scales,
     )
@@ -200,69 +185,15 @@ def main() -> None:
     dt = chained_loop_time(
         lambda vT, bq, s: banded_spmm_quant_fm(
             QuantizedBandedMatrixFM(bq, s, N, W), vT,
-            interpret=args.interpret,
         ),
         xT, it, qT.band_qT, qT.scales,
     )
     record_pass("fm_bwd", dt, fm_bytes)
 
-    # ---- blocked (contiguous) passes — promoted this round ------------
-    xb = to_blocked(
-        jax.lax.dynamic_update_slice(
-            jnp.zeros((F, (nb + 2 * W) * block), jnp.float32), xT,
-            (0, W * block),
-        ),
-        block,
-    )
-
-    def blocked_norm(vb, bq, s):
-        out = banded_spmm_quant_blocked(
-            QuantizedBandedMatrixFM(bq, s, N, W), vb,
-            interpret=args.interpret,
-        )
-        out = out * jax.lax.rsqrt(jnp.mean(out * out) + 1e-12)
-        return jnp.pad(out, ((W, W), (0, 0), (0, 0)))
-
-    # blocked kernel consumes the padded frame; chain with re-padding
-    # inside the loop (the pad is part of the honest per-pass cost the
-    # trainable path pays via _pad_blocked)
-    import time as _time
-
-    def time_blocked(bq, s):
-        k_small = max(it // 4, 1)
-
-        def make(k):
-            def looped(vb, bq, s):
-                def body(_, v):
-                    return blocked_norm(v, bq, s)
-
-                return jnp.mean(jax.lax.fori_loop(0, k, body, vb))
-
-            return jax.jit(looped).lower(xb, bq, s).compile()
-
-        c_full, c_small = make(it), make(k_small)
-        fetch(c_full(xb, bq, s))
-        fetch(c_small(xb, bq, s))
-
-        def timed(c):
-            t0 = _time.perf_counter()
-            fetch(c(xb, bq, s))
-            return _time.perf_counter() - t0
-
-        t_small = min(timed(c_small) for _ in range(2))
-        t_full = min(timed(c_full) for _ in range(2))
-        return max(t_full - t_small, 1e-12) / (it - k_small)
-
-    dt = time_blocked(q.band_qT, q.scales)
-    record_pass("blocked_fwd_incl_pad", dt, fm_bytes)
-    dt = time_blocked(qT.band_qT, qT.scales)
-    record_pass("blocked_bwd_incl_pad", dt, fm_bytes)
-
-    # ---- w8a8 pass (serving kernel; quantizes x inside) ---------------
+    # ---- w8a8 pass (serving product; quantizes x inside) --------------
     dt = chained_loop_time(
         lambda vT, bq, s: banded_spmm_quant_fm_w8a8(
             QuantizedBandedMatrixFM(bq, s, N, W), vT,
-            interpret=args.interpret,
         ),
         xT, it, q.band_qT, q.scales,
     )
@@ -294,21 +225,6 @@ def main() -> None:
     )
     record_pass("bn_train_relu_fm", dt, 3 * F * N * 4)
 
-    def bn_relu_blocked(vb, scale, bias, mean, var):
-        y, st = batch_norm_apply_blocked(
-            {"scale": scale, "bias": bias}, {"mean": mean, "var": var},
-            vb[W:-W] if W else vb, None, train=True,
-        )
-        y = jax.nn.relu(y) + 0 * st["mean"][None, :, None]
-        y = y * jax.lax.rsqrt(jnp.mean(y * y) + 1e-12)
-        return jnp.pad(y, ((W, W), (0, 0), (0, 0)))
-
-    dt = chained_loop_time(
-        bn_relu_blocked, xb, it, bn_p["scale"], bn_p["bias"], bn_s["mean"],
-        bn_s["var"],
-    )
-    record_pass("bn_train_relu_blocked", dt, 3 * F * N * 4)
-
     def boundary(v):
         return jnp.swapaxes(v[: nb * block].reshape(nb, block, F), 1, 2)
 
@@ -317,10 +233,8 @@ def main() -> None:
     )
     record_pass("boundary_relayout_roundtrip", dt, 4 * F * N * 4)
 
-    # ---- f32 ROW-MAJOR non-band passes (VERDICT r4 weak #1) -----------
-    # The r4 teardown measured every non-band row in the fm/blocked
-    # layouts only, leaving f32_5t's residual asserted rather than
-    # attributed.  These rows run in the SAME layout the f32 step uses
+    # ---- f32 ROW-MAJOR non-band passes --------------------------------
+    # These rows run in the SAME layout the f32 step uses
     # ([N, F] activations, masked BN over axis 0), so the f32
     # attribution below is a sum of measured rows, not a subtraction.
     from connectome_gnn_jax.nn.layers import batch_norm_apply
@@ -333,8 +247,8 @@ def main() -> None:
     dt = chained_loop_time(wmat_rm, x, it, Wm)
     record_pass("weight_matmul_rm", dt, 2 * F * N * 4)
 
-    # marginal cost of the weight matmul FUSED behind a band pass (the
-    # r4 marginal-cost probe, f32 layout): combo − measured band pass
+    # marginal cost of the weight matmul FUSED behind a band pass (f32
+    # layout): combo − measured band pass
     dt_combo = chained_loop_time(
         lambda v, b, Wm_: jnp.dot(
             banded_spmm(adj_T._replace(band=b), v), Wm_,
@@ -381,8 +295,8 @@ def main() -> None:
         dw = jnp.einsum(
             "nf,nk->fk", v, g, preferred_element_type=jnp.float32
         )
-        # sum over ALL of dw: keeping only a row would let XLA DCE
-        # 63/64 of the reduction (the round-5 ablation's lesson)
+        # sum over ALL of dw: keeping only a row would let XLA drop
+        # 63/64 of the reduction as dead code
         return v + 1e-30 * dw.sum(0)
 
     dt = chained_loop_time(dw_rm, x, it, g_cot)
@@ -440,7 +354,7 @@ def main() -> None:
         results["steps"][name] = {
             "ms": dt * 1e3,
             "edges_per_s": L * E / dt,
-            "hbm_frac": bytes_model / dt / PEAK_HBM_BPS,
+            "hbm_frac": bytes_model / dt / peak_bps,
         }
         print(f"# step {name}: {dt*1e3:.3f} ms", file=sys.stderr, flush=True)
         return dt
@@ -454,33 +368,19 @@ def main() -> None:
         lambda p, s, bq, sc, bqT, scT, dinv_, x_: model.apply_quant_trainable(
             p, s, QuantizedBandedMatrixFM(bq, sc, N, W),
             QuantizedBandedMatrixFM(bqT, scT, N, W), dinv_, x_, train=True,
-            interpret=args.interpret,
-        ),
-        (q.band_qT, q.scales, qT.band_qT, qT.scales, dinv),
-        quant_step_bytes,
-    )
-    record_step(
-        "blocked_5tqb",
-        lambda p, s, bq, sc, bqT, scT, dinv_, x_:
-        model.apply_quant_trainable_blocked(
-            p, s, QuantizedBandedMatrixFM(bq, sc, N, W),
-            QuantizedBandedMatrixFM(bqT, scT, N, W), dinv_, x_, train=True,
-            interpret=args.interpret,
         ),
         (q.band_qT, q.scales, qT.band_qT, qT.scales, dinv),
         quant_step_bytes,
     )
 
     # f32 (5t) — recover the row-major band by REBUILDING it from the
-    # (deterministic) generator: even the donated transpose OOMs here
-    # with the step state resident (in+out+temps ≈ 12 GB + fragments),
-    # so free everything first and pay the host rebuild instead.
+    # (deterministic) generator instead of a second transpose: free
+    # everything first and pay the host rebuild.
     q.band_qT.delete()
     qT.band_qT.delete()
     adj_T.band.delete()
     del adj_T
-    xb.delete()
-    g_cot.delete()  # the r5 f32-row cotangent — margin here is razor-thin
+    g_cot.delete()
     a2, _ = quant_exp.build_band(N, args.degree, args.band, block)
     adj_norm, dinv2 = gcn_normalize_banded(a2)
     a2.band.delete()
@@ -498,9 +398,9 @@ def main() -> None:
     )
 
     # forward-ONLY train-mode pass through the same model: splits the
-    # f32 non-band residual into its fwd and bwd halves (VERDICT r4
-    # weak #1 follow-through — what the grad transform adds is then
-    # step − forward − band_bwd−attributable rows, all measured)
+    # f32 non-band residual into its fwd and bwd halves (what the grad
+    # transform adds is then step − forward − band_bwd-attributable
+    # rows, all measured)
     def f32_fwd_model(band, dinv_, x_, eps, i):
         logits, _ = model.apply_normalized(
             params, state, BandedMatrix(band, N, W), dinv_, x_ + eps,
@@ -514,7 +414,7 @@ def main() -> None:
     results["steps"]["f32_forward_train_mode"] = {
         "ms": dt * 1e3,
         "edges_per_s": L * E / dt,
-        "hbm_frac": (f32_step_bytes / 3) / dt / PEAK_HBM_BPS,
+        "hbm_frac": (f32_step_bytes / 3) / dt / peak_bps,
     }
     print(f"# step f32_forward_train_mode: {dt*1e3:.3f} ms",
           file=sys.stderr, flush=True)
@@ -530,15 +430,6 @@ def main() -> None:
             "non_band_ms": st["fm_5tq"]["ms"]
             - L * (ps["fm_fwd"]["ms"] + ps["fm_bwd"]["ms"]),
         },
-        "blocked_5tqb": {
-            "band_passes_ms": L
-            * (ps["blocked_fwd_incl_pad"]["ms"]
-               + ps["blocked_bwd_incl_pad"]["ms"]),
-            "step_ms": st["blocked_5tqb"]["ms"],
-            "non_band_ms": st["blocked_5tqb"]["ms"]
-            - L * (ps["blocked_fwd_incl_pad"]["ms"]
-                   + ps["blocked_bwd_incl_pad"]["ms"]),
-        },
         "f32_5t": {
             "band_passes_ms": L
             * (ps["f32_fwd"]["ms"] + ps["f32_bwd_transposed"]["ms"]),
@@ -547,8 +438,8 @@ def main() -> None:
             - L * (ps["f32_fwd"]["ms"] + ps["f32_bwd_transposed"]["ms"]),
         },
     }
-    # f32 non-band residual attributed as a SUM of measured f32 rows
-    # (VERDICT r4 weak #1): per layer the step pays hw = h·W (fwd),
+    # f32 non-band residual attributed as a SUM of measured f32 rows:
+    # per layer the step pays hw = h·W (fwd),
     # dh = ḡ·Wᵀ (bwd, same cost row), dW = hᵀ·ḡ, and BN+ReLU fwd+bwd;
     # once per step the CE head fwd+bwd.  weight_matmul_rm_marginal
     # records how much of the matmul fuses into the band pass for free.
@@ -584,6 +475,7 @@ def main() -> None:
 
     out = json.dumps(results, indent=2)
     print(out)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         f.write(out + "\n")
 

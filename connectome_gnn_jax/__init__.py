@@ -1,4 +1,4 @@
-"""connectome-gnn-jax: a TPU-native GNN message-passing framework.
+"""connectome-gnn-jax: a GNN message-passing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas framework for brain-connectome graph
 classification with the capabilities of the reference
@@ -6,7 +6,7 @@ classification with the capabilities of the reference
 GraphSAGE), same data contracts (COO connectome graphs, block-diagonal
 packing, seed-reproducible Watts-Strogatz synthesis), same training behavior
 (BatchNorm/dropout, mean-pool readout, Adam with early stopping and
-best-weights restore) — redesigned TPU-first:
+best-weights restore) — redesigned for accelerators:
 
 * padded, statically-shaped device batches (compile once, run forever);
 * segment-sum / SpMM aggregation over receiver-sorted (CSR) edge lists,

@@ -3,14 +3,14 @@
 The reference packs ragged graphs into block-diagonal tensors whose shapes
 change batch to batch (reference ``connectome_gnn/graph.py:143-167``).  XLA
 compiles one program per shape, so ragged packing would recompile every step.
-This module is the TPU-native redesign of that contract:
+This module is the static-shape redesign of that contract:
 
 * Nodes and edges of a batch are concatenated block-diagonally exactly like
   the reference, then **padded to static budgets** (rounded to hardware
   friendly multiples) with explicit masks.  A loader with fixed budgets
   yields identically-shaped batches forever → exactly one XLA compilation.
 * Edges are **sorted by receiver** (CSR order).  Segment sums over sorted
-  ids lower to efficient TPU code and accumulate deterministically; the
+  ids lower to sorted-segment reductions; the
   accompanying ``row_ptr`` (CSR indptr over receivers) is carried for
   CSR-consuming kernels.
 * Padding is inert by construction: padded edges have weight 0 and point
@@ -72,7 +72,7 @@ class ConnectomeBatch:
     row_ptr : int32 [P + 1]
         CSR indptr over receivers: edges ``row_ptr[i]:row_ptr[i+1]`` have
         receiver ``i``.  Not consumed by the current compute paths (the
-        dense/banded layouts won on TPU); carried for CSR-consuming
+        dense/banded layouts serve those); carried for CSR-consuming
         kernels and external tooling.
     num_graphs : int (static)
         Number of graph slots ``B``.

@@ -1,10 +1,10 @@
-"""Dense block-diagonal batch layout — the MXU fast path.
+"""Dense block-diagonal batch layout — the batched-matmul fast path.
 
 Connectome graphs are small (83-360 nodes) and moderately dense (~10% of
-pairs).  At those sizes the TPU-native aggregation is not scatter at all:
+pairs).  At those sizes the fast aggregation is not scatter at all:
 pack the batch as a dense ``[B, n, n]`` weighted adjacency and aggregate
-with a batched matmul on the 128×128 systolic array.  A 16×84-node batch
-costs ~14 MFLOPs/layer — microseconds on the MXU — while the equivalent
+with a batched matmul on the matrix units.  A 16×84-node batch costs
+~14 MFLOPs/layer — microseconds on the tensor cores — while the equivalent
 gather/scatter path is latency-bound on memory ops.  The COO/CSR layout
 (:mod:`connectome_gnn_jax.data.batch`) remains the general path for ragged
 or giant graphs; this layout is the throughput path for equal-size

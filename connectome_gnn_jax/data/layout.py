@@ -1,9 +1,8 @@
 """Automatic layout recovery for giant sparse graphs (host side).
 
-The irregular scatter SpMM path on TPU is random-row LATENCY bound
-(~11-14 ns per edge, width-independent — measured in
-``benchmarks/spmm_experiments.py``), while the banded block-dense path
-rides the HBM roofline.  The design answer for irregular graphs
+The irregular scatter SpMM path is bound by random-row access, paid per
+edge, while the banded block-dense path streams at device-memory
+bandwidth.  The design answer for irregular graphs
 (docs/ARCHITECTURE.md "locality recovery") is therefore: *recover
 locality whenever it exists* — reorder, split band + remainder, and pick
 the layout a calibrated cost model says is fastest.  This module is that
@@ -23,12 +22,11 @@ scatter latency), subject to an HBM footprint budget — and returns the
 argmin as a :class:`LayoutPlan` (format ∈ {banded, hybrid, coo},
 ordering, W, remainder fraction, per-candidate cost table).
 
-The model's constants are THIS repo's measured numbers, not guesses:
-``scatter_ns_per_edge=13`` (the 11-14 ns/row latency bound) and
-``hbm_gbps=600`` (large streams sustain ~608 GB/s effective; the f32
-band einsum measures 544 GB/s).  Rankings are insensitive to either
-constant within its measured range because the paths they price differ
-by >10×.
+The model's constants are measured on an NVIDIA H100 80GB HBM3 (power
+limit 400 W) by ``benchmarks/gpu_calibration.py``: ``scatter_ns_per_edge
+=0.15`` (a ``segment_sum`` SpMM at 262,144 nodes, 16 edges per node,
+F=64: 0.62 ms for 4.2M edges) and ``hbm_gbps=2090`` (1 GiB read + 1 GiB
+written in 1.03 ms).
 
 Reference counterpart: the dense/degree adjacency helpers this format
 family replaces (`/root/reference/connectome_gnn/graph.py:72-85`);
@@ -127,8 +125,8 @@ def plan_layout(
     spectral: bool | str = "auto",
     quantized: bool = False,
     max_band_gb: float = 8.0,
-    hbm_gbps: float = 600.0,
-    scatter_ns_per_edge: float = 13.0,
+    hbm_gbps: float = 2090.0,
+    scatter_ns_per_edge: float = 0.15,
 ) -> LayoutPlan:
     """Choose ordering + layout for a giant graph's SpMM.
 

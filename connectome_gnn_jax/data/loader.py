@@ -62,7 +62,7 @@ class ConnectomeDataLoader:
     layout
         ``"coo"`` (default) yields padded :class:`ConnectomeBatch`;
         ``"dense"`` yields :class:`DenseConnectomeBatch` (batched dense
-        adjacency, the MXU fast path for equal-size small graphs).
+        adjacency, the batched-matmul path for equal-size small graphs).
     """
 
     def __init__(

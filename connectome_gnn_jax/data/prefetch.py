@@ -1,9 +1,9 @@
 """Background-thread batch prefetching.
 
 Host-side collation (packing + padding + ``jnp.asarray``) runs on the CPU
-while the previous step executes on the TPU.  ``PrefetchIterator`` wraps any
+while the previous step executes on the device.  ``PrefetchIterator`` wraps any
 batch iterable with a bounded background producer thread, so collate and
-host→device transfer overlap device compute — the TPU-native stand-in for
+host→device transfer overlap device compute — the stand-in for
 the reference loader's synchronous per-batch packing (reference
 ``connectome_gnn/graph.py:190-197``, which re-collates inside the hot loop).
 

@@ -99,9 +99,9 @@ class SampledNodeBatch:
     # Optional per-hop blocked adjacency (device-side sampler only):
     # tuple of HopBlock, one per hop, exposing the [frontier, fanout]
     # emission layout so layers can aggregate by reshape-sum + a small
-    # per-frontier scatter instead of an edge-count scatter (see
-    # SAMPLE_DECOMP_r03.json for why: every 100k-row random access
-    # costs ~1.3 ms on this part).  Flat senders/receivers/edge_weight
+    # per-frontier scatter instead of an edge-count scatter (every
+    # random-access pass over the edges costs a memory round trip per
+    # row).  Flat senders/receivers/edge_weight
     # above remain the same edges (blocks are reshaped views); None for
     # host-built batches.
     hop_blocks: "tuple[HopBlock, ...] | None" = None

@@ -50,7 +50,7 @@ class _ConnectomeModel:
     _layer_init: Callable
     #: (params, x, senders, receivers, w) -> x'   (COO/CSR path)
     _layer_apply: Callable
-    #: (params, x [B,n,F], adj [B,n,n]) -> x'     (dense MXU path)
+    #: (params, x [B,n,F], adj [B,n,n]) -> x'     (dense matmul path)
     _dense_layer_apply: Callable
     #: whether encode applies an explicit ReLU after BatchNorm
     _relu_after_norm: bool
@@ -65,7 +65,7 @@ class _ConnectomeModel:
         compute_dtype=jnp.float32,
     ):
         """``compute_dtype=jnp.bfloat16`` enables mixed precision on the
-        dense MXU path (bf16 matmul operands, f32 accumulation and
+        dense matmul path (bf16 matmul operands, f32 accumulation and
         statistics); parameters and the COO path stay f32."""
         self.in_channels = int(in_channels)
         self.hidden_dim = int(hidden_dim)
@@ -129,7 +129,7 @@ class _ConnectomeModel:
 
         Dispatches on the batch layout: COO/CSR (:class:`ConnectomeBatch`,
         general path) or dense adjacency (:class:`DenseConnectomeBatch`,
-        MXU path) — identical numerics either way.
+        matmul path) — identical numerics either way.
         """
         if isinstance(batch, DenseConnectomeBatch):
             return self._encode_dense(
@@ -175,7 +175,7 @@ class _ConnectomeModel:
         rng: Optional[jax.Array] = None,
         axis_name: Optional[str] = None,
     ) -> tuple[jnp.ndarray, dict]:
-        """Dense-adjacency encode: batched-matmul aggregation on the MXU."""
+        """Dense-adjacency encode: batched-matmul aggregation."""
         B, n, _ = batch.node_features.shape
         x = batch.node_features
         flat_mask = batch.node_mask.reshape(B * n)

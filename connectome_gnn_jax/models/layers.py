@@ -53,7 +53,7 @@ def gcn_layer_apply(
     """Symmetric-normalized weighted graph convolution.
 
     Transform-then-aggregate (models.py:111-113): the dense transform runs
-    on the MXU at width ``out_channels``; aggregation is a gather-scale-
+    as a matmul at width ``out_channels``; aggregation is a gather-scale-
     segment-sum over the receiver-sorted edge list, with the self-loop block
     folded into an elementwise rescale (see :mod:`ops.gcn_norm`).
     """
@@ -216,7 +216,7 @@ def sage_layer_apply_blocked(
 
 
 # ---------------------------------------------------------------------------
-# Dense (MXU) variants — same math over the [B, n, n] adjacency layout
+# Dense (batched-matmul) variants — same math over the [B, n, n] layout
 # ---------------------------------------------------------------------------
 
 
@@ -231,11 +231,11 @@ def gcn_layer_apply_dense(
 
     Identical numerics to :func:`gcn_layer_apply` (degree over senders,
     self-loop weight 1.0, ``(deg + 1e-8)^-0.5``), expressed as a batched
-    matmul so aggregation runs on the MXU.  The normalization is the same
+    matmul.  The normalization is the same
     for every layer of a forward pass; XLA CSEs the recomputation.
 
     ``compute_dtype=jnp.bfloat16`` runs the matmul operands in bf16 with
-    f32 MXU accumulation (2× MXU rate); normalization and statistics stay
+    f32 accumulation; normalization and statistics stay
     f32.  Output is always f32.
     """
     # Out-degree of sender j = column sum over receivers i, plus self-loop.

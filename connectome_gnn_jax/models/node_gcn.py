@@ -127,10 +127,8 @@ class BandedNodeGCN:
 
         ``band_dtype="bfloat16"`` (pure bands) stores the normalized
         band bf16 — HALF the residency (5.37 → 2.7 GB at 1M/±512, a 2×
-        bigger banded graph per chip) at no on-TPU numeric cost: the
-        conv lowering rounds f32 band operands to bf16 anyway, with f32
-        accumulation either way (see :func:`~connectome_gnn_jax.ops.
-        banded.banded_spmm`).
+        bigger banded graph per device), with f32 accumulation either
+        way (see :func:`~connectome_gnn_jax.ops.banded.banded_spmm`).
         """
         if isinstance(adjacency, HybridMatrix):
             if band_dtype != "float32":
@@ -209,16 +207,15 @@ class BandedNodeGCN:
         node_mask: Optional[jnp.ndarray] = None,
         train: bool = True,
         rng: Optional[jax.Array] = None,
-        interpret: bool = False,
     ) -> tuple[jnp.ndarray, dict]:
         """Differentiable int8-band forward (feature-major end-to-end).
 
         Same layer math as :meth:`apply` with the SpMM replaced by the
-        manual-DMA int8 kernel in BOTH directions
+        int8 product in BOTH directions
         (:func:`~connectome_gnn_jax.ops.banded_quant.
         banded_spmm_quant_fm_grad`): forward reads the quantized band,
-        backward reads the quantized transpose — 4× less band HBM
-        traffic each way than f32 training.  Train-mode BatchNorm runs
+        backward reads the quantized transpose — 4× fewer band bytes
+        each way than f32 training.  Train-mode BatchNorm runs
         feature-major with identical semantics
         (:func:`~connectome_gnn_jax.nn.layers.batch_norm_apply_fm`).
         Gradient error carries the quantization bound (~1% relative,
@@ -246,9 +243,7 @@ class BandedNodeGCN:
                 preferred_element_type=jnp.float32,
             )
             hT = (
-                banded_spmm_quant_fm_grad(
-                    adj_q, adj_qT, hwT, interpret=interpret
-                )
+                banded_spmm_quant_fm_grad(adj_q, adj_qT, hwT)
                 + self_normT * hwT
                 + params["convs"][i]["bias"][:, None]
             )
@@ -266,104 +261,21 @@ class BandedNodeGCN:
             logits_T = logits_T + params["head"]["bias"][:, None]
         return logits_T.T, {"norms": new_norms}
 
-    def apply_quant_trainable_blocked(
-        self,
-        params: dict,
-        state: dict,
-        adj_q,
-        adj_qT,
-        dinv: jnp.ndarray,
-        x: jnp.ndarray,
-        *,
-        node_mask: Optional[jnp.ndarray] = None,
-        train: bool = True,
-        rng: Optional[jax.Array] = None,
-        interpret: bool = False,
-    ) -> tuple[jnp.ndarray, dict]:
-        """:meth:`apply_quant_trainable` with BLOCKED activations: every
-        band pass (forward AND backward, all layers) runs the contiguous
-        leading-dim-DMA kernel
-        (:func:`~connectome_gnn_jax.ops.banded_quant.
-        banded_spmm_quant_blocked_grad` — FM_DIAG_r03's ``fm_blocked``,
-        ~1.25× per pass over the strided fm kernel at zero extra error),
-        and activations stay ``[NB, F, block]`` between layers so the
-        relayout happens only at the model boundary.  ``x`` may be
-        node-major ``[N, F]`` (converted here) or pre-blocked
-        ``[NB, F, block]``.  Identical numerics to
-        :meth:`apply_quant_trainable` up to summation order.
-        """
-        from connectome_gnn_jax.nn.layers import batch_norm_apply_blocked
-        from connectome_gnn_jax.ops.banded_quant import (
-            banded_spmm_quant_blocked_grad,
-        )
-
-        n = adj_q.num_nodes
-        block, nb = adj_q.block, adj_q.num_blocks
-        padded = nb * block
-        if x.ndim == 2:  # [N, F] node-major → blocked
-            xp = jnp.zeros((padded, x.shape[1]), jnp.float32)
-            xp = jax.lax.dynamic_update_slice(
-                xp, x[:n].astype(jnp.float32), (0, 0)
-            )
-            hb = jnp.swapaxes(xp.reshape(nb, block, -1), 1, 2)
-        else:
-            hb = x
-        self_norm_b = (dinv * dinv)[:padded].reshape(nb, 1, block)
-        mask_b = (
-            node_mask[:padded].reshape(nb, block)
-            if node_mask is not None
-            else (jnp.arange(padded) < n).reshape(nb, block)
-        )
-
-        new_norms = []
-        drop_keys = (
-            jax.random.split(rng, self.num_layers)
-            if (train and rng is not None)
-            else [None] * self.num_layers
-        )
-        for i in range(self.num_layers):
-            hwb = jnp.einsum(
-                "fk,nfb->nkb", params["convs"][i]["kernel"], hb,
-                preferred_element_type=jnp.float32,
-            )
-            hb = (
-                banded_spmm_quant_blocked_grad(
-                    adj_q, adj_qT, hwb, interpret=interpret
-                )
-                + self_norm_b * hwb
-                + params["convs"][i]["bias"][None, :, None]
-            )
-            hb, bn_state = batch_norm_apply_blocked(
-                params["norms"][i], state["norms"][i], hb, mask_b,
-                train=train,
-            )
-            new_norms.append(bn_state)
-            hb = jax.nn.relu(hb)
-            hb = dropout(drop_keys[i], hb, self.dropout, train=train)
-        logits_b = jnp.einsum(
-            "fk,nfb->nkb", params["head"]["kernel"], hb,
-            preferred_element_type=jnp.float32,
-        )
-        if "bias" in params["head"]:
-            logits_b = logits_b + params["head"]["bias"][None, :, None]
-        logits = jnp.swapaxes(logits_b, 1, 2).reshape(padded, -1)[:n]
-        return logits, {"norms": new_norms}
-
     def prepare_quantized(self, adjacency, feature_major: bool = True):
         """One-time serving setup: GCN-normalize, then int8-quantize.
 
         Returns ``(adj_q, dinv)`` for :meth:`apply_quantized` — the band
         part of the *normalized* adjacency per-tile quantized to int8
-        (4× less HBM traffic and footprint than f32; ~0.2% per-entry
+        (4× fewer band bytes than f32; ~0.2% per-entry
         error, see :mod:`connectome_gnn_jax.ops.banded_quant`).
         Quantizing after normalization matters: the sym-norm rescale is
         exact, only the final SpMM operand is rounded.
 
         ``feature_major`` (pure-band adjacency only) returns the
-        transposed-tile form consumed by the manual-DMA kernel
-        (:func:`~connectome_gnn_jax.ops.banded_quant.banded_spmm_quant_fm`,
-        1.7× faster at 1M nodes); :meth:`apply_quantized` then keeps
-        activations ``[F, N]`` across layers.  Hybrid adjacencies stay
+        transposed-tile form consumed by
+        :func:`~connectome_gnn_jax.ops.banded_quant.banded_spmm_quant_fm`;
+        :meth:`apply_quantized` then keeps activations ``[F, N]`` across
+        layers.  Hybrid adjacencies stay
         row-major (the scatter remainder wants node-major rows).
         """
         from connectome_gnn_jax.ops.banded_quant import (
@@ -388,9 +300,7 @@ class BandedNodeGCN:
         x: jnp.ndarray,
         *,
         node_mask: Optional[jnp.ndarray] = None,
-        rows_per_step: int = 8,
         w8a8: bool = False,
-        interpret: bool = False,
     ) -> tuple[jnp.ndarray, dict]:
         """Inference forward over a :func:`prepare_quantized` adjacency.
 
@@ -398,14 +308,11 @@ class BandedNodeGCN:
         are not defined); BN uses running statistics.
 
         ``w8a8`` (feature-major adjacencies only) also quantizes each
-        layer's activations per column block to int8 and runs the native
-        int8-MXU kernel (:func:`~connectome_gnn_jax.ops.banded_quant.
-        banded_spmm_quant_fm_w8a8`) — measured 1.7× over the bf16-
-        activation kernel at the 1M-node config at ~1% additional
-        relative error (FM_DIAG_r03.json).
+        layer's activations per column block to int8 and runs
+        ``int8 × int8`` products (:func:`~connectome_gnn_jax.ops.
+        banded_quant.banded_spmm_quant_fm_w8a8`), at ~1% additional
+        relative error.
         """
-        from functools import partial
-
         from connectome_gnn_jax.ops.banded_quant import (
             QuantizedBandedMatrixFM,
             QuantizedHybridMatrix,
@@ -415,20 +322,17 @@ class BandedNodeGCN:
 
         if isinstance(adj_q, QuantizedBandedMatrixFM):
             return self._forward_quant_fm(
-                params, state, adj_q, dinv, x, w8a8=w8a8,
-                interpret=interpret,
+                params, state, adj_q, dinv, x, w8a8=w8a8
             )
         if w8a8:
             raise ValueError(
                 "w8a8 serving requires a feature-major adjacency "
                 "(prepare_quantized(..., feature_major=True))"
             )
-        spmm = partial(
+        spmm = (
             hybrid_spmm_quant
             if isinstance(adj_q, QuantizedHybridMatrix)
-            else banded_spmm_quant,
-            rows_per_step=rows_per_step,
-            interpret=interpret,
+            else banded_spmm_quant
         )
         return self._forward(
             params, state, spmm, adj_q, dinv, x,
@@ -436,16 +340,15 @@ class BandedNodeGCN:
         )
 
     def _forward_quant_fm(
-        self, params, state, adj_q, dinv, x, *, w8a8=False, interpret=False
+        self, params, state, adj_q, dinv, x, *, w8a8=False
     ) -> tuple[jnp.ndarray, dict]:
         """Layout-persistent quantized serving: activations stay
-        feature-major (``[F, N]``) across every layer — the manual-DMA
-        band kernel's native layout — and only the tiny input
+        feature-major (``[F, N]``) across every layer, and only the tiny input
         (``[N, in_channels]``) and logits (``[N, classes]``) transpose at
         the model boundary.  Eval-mode semantics identical to
         :meth:`_forward` (running-stat BN, no dropout).  ``w8a8`` swaps
-        in the int8-activation kernel (per-layer requantization fuses
-        with the BN/ReLU epilogue under jit)."""
+        in int8 activations (per-layer requantization fuses with the
+        BN/ReLU epilogue under jit)."""
         from connectome_gnn_jax.nn.layers import batch_norm_eval_fm
         from connectome_gnn_jax.ops.banded_quant import (
             banded_spmm_quant_fm,
@@ -463,7 +366,7 @@ class BandedNodeGCN:
                 preferred_element_type=jnp.float32,
             )
             hT = (
-                spmm(adj_q, hwT, interpret=interpret)
+                spmm(adj_q, hwT)
                 + self_normT * hwT
                 + params["convs"][i]["bias"][:, None]
             )

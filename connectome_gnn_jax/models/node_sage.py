@@ -115,7 +115,8 @@ class BandedNodeSAGE:
         exact; only the message numerator is rounded.
 
         ``feature_major`` (pure-band adjacency only): transposed-tile
-        form for the manual-DMA kernel; activations then stay ``[F, N]``
+        form for :func:`~connectome_gnn_jax.ops.banded_quant.
+        banded_spmm_quant_fm`; activations then stay ``[F, N]``
         across layers in :meth:`apply_quantized`.  Hybrid adjacencies
         stay row-major.
         """
@@ -141,13 +142,9 @@ class BandedNodeSAGE:
         x: jnp.ndarray,
         *,
         node_mask: Optional[jnp.ndarray] = None,
-        rows_per_step: int = 8,
-        interpret: bool = False,
     ) -> tuple[jnp.ndarray, dict]:
         """Inference forward over a :func:`prepare_quantized` adjacency
         (serving-only; BN uses running statistics)."""
-        from functools import partial
-
         from connectome_gnn_jax.ops.banded_quant import (
             QuantizedBandedMatrixFM,
             QuantizedHybridMatrix,
@@ -156,15 +153,11 @@ class BandedNodeSAGE:
         )
 
         if isinstance(adj_q, QuantizedBandedMatrixFM):
-            return self._forward_quant_fm(
-                params, state, adj_q, w_sum, x, interpret=interpret
-            )
-        spmm = partial(
+            return self._forward_quant_fm(params, state, adj_q, w_sum, x)
+        spmm = (
             hybrid_spmm_quant
             if isinstance(adj_q, QuantizedHybridMatrix)
-            else banded_spmm_quant,
-            rows_per_step=rows_per_step,
-            interpret=interpret,
+            else banded_spmm_quant
         )
         return self._forward(
             params, state, spmm, adj_q, w_sum, x,
@@ -172,7 +165,7 @@ class BandedNodeSAGE:
         )
 
     def _forward_quant_fm(
-        self, params, state, adj_q, w_sum, x, *, interpret=False
+        self, params, state, adj_q, w_sum, x
     ) -> tuple[jnp.ndarray, dict]:
         """Layout-persistent quantized serving (feature-major activations;
         see ``BandedNodeGCN._forward_quant_fm``).  The concat-aggregate
@@ -186,7 +179,7 @@ class BandedNodeSAGE:
 
         hT = x[:n].T
         for i in range(self.num_layers):
-            aggT = banded_spmm_quant_fm(adj_q, hT, interpret=interpret) / (
+            aggT = banded_spmm_quant_fm(adj_q, hT) / (
                 w_sumT + EPS
             )
             catT = jnp.concatenate([hT, aggT], axis=0)

@@ -1,11 +1,11 @@
 """Native (C++) host-runtime kernels with automatic build and fallback.
 
-The TPU compute path is JAX/XLA/Pallas; this package accelerates the host
+The device compute path is JAX/XLA/Pallas; this package accelerates the host
 runtime *around* it: giant-graph ingest (RCM reordering, COO→band and
 COO→dense packing) whose numpy forms are Python-loop- or ``np.add.at``-
 bound at voxel-connectome scale.  The reference suite has no native code
 at all (SURVEY §2: pure Python + torch scatter) — this layer is part of
-the from-scratch TPU framework's production runtime.
+the framework's production runtime.
 
 Design:
 

@@ -1,6 +1,6 @@
 // Native host-side graph preprocessing kernels.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library accelerates the
+// The device compute path is JAX/XLA/Pallas; this library accelerates the
 // *host* runtime around it — the giant-graph ingest path (reordering,
 // band packing) whose numpy implementations are Python-loop- or
 // np.add.at-bound at voxel-connectome scale (millions of nodes/edges).

@@ -5,7 +5,7 @@ module framework, no hidden state.  That keeps every piece trivially
 jittable, shardable (params are plain pytrees for ``NamedSharding``), and
 easy to load with reference weights for parity testing.
 
-Masked BatchNorm is the one genuinely TPU-shaped redesign: the reference
+Masked BatchNorm is the one genuinely static-shape redesign: the reference
 normalizes over all packed nodes of a ragged batch
 (reference ``connectome_gnn/models.py:208``, torch ``BatchNorm1d``).  With
 static padding, the batch statistics must exclude padded rows or the
@@ -53,7 +53,7 @@ def dense_init(
 
 
 def dense_apply(params: dict, x: jnp.ndarray) -> jnp.ndarray:
-    """``x @ kernel (+ bias)`` with f32 MXU accumulation."""
+    """``x @ kernel (+ bias)`` with f32 accumulation."""
     y = jnp.dot(x, params["kernel"], preferred_element_type=jnp.float32)
     if "bias" in params:
         y = y + params["bias"]
@@ -173,49 +173,6 @@ def batch_norm_apply_fm(
         "var": (1.0 - momentum) * state["var"] + momentum * var_unbiased,
     }
     return y * params["scale"][:, None] + params["bias"][:, None], new_state
-
-
-def batch_norm_apply_blocked(
-    params: dict,
-    state: dict,
-    xb: jnp.ndarray,
-    mask_b: Optional[jnp.ndarray],
-    *,
-    train: bool,
-    momentum: float = 0.1,
-    eps: float = 1e-5,
-) -> tuple[jnp.ndarray, dict]:
-    """:func:`batch_norm_apply` for BLOCKED activations ``xb [NB, F,
-    block]`` (the contiguous-DMA training layout of
-    :func:`~connectome_gnn_jax.ops.banded_quant.
-    banded_spmm_quant_blocked`): identical semantics — biased batch
-    variance on the normalize path, unbiased running update, masked node
-    counting — with reductions over the (block-row, in-block) axes.
-    ``mask_b`` is ``[NB, block]`` (or None = all real)."""
-    scale = params["scale"][None, :, None]
-    bias = params["bias"][None, :, None]
-    if not train:
-        y = (xb - state["mean"][None, :, None]) * jax.lax.rsqrt(
-            state["var"] + eps
-        )[None, :, None]
-        return y * scale + bias, state
-    if mask_b is None:
-        n = jnp.asarray(xb.shape[0] * xb.shape[2], xb.dtype)
-        mean = jnp.mean(xb, axis=(0, 2))
-        var = jnp.mean(xb * xb, axis=(0, 2)) - mean * mean
-    else:
-        m = mask_b.astype(xb.dtype)[:, None, :]
-        n = jnp.sum(m)
-        mean = jnp.sum(xb * m, axis=(0, 2)) / n
-        var = jnp.sum((xb * xb) * m, axis=(0, 2)) / n - mean * mean
-    var = jnp.maximum(var, 0.0)
-    y = (xb - mean[None, :, None]) * jax.lax.rsqrt(var + eps)[None, :, None]
-    var_unbiased = var * (n / jnp.maximum(n - 1.0, 1.0))
-    new_state = {
-        "mean": (1.0 - momentum) * state["mean"] + momentum * mean,
-        "var": (1.0 - momentum) * state["var"] + momentum * var_unbiased,
-    }
-    return y * scale + bias, new_state
 
 
 def batch_norm_eval_fm(

@@ -4,10 +4,12 @@ Interchangeable implementations of the aggregation kernels:
 
 * the XLA COO path (:mod:`segment`) — ``jax.ops.segment_sum`` based, the
   correctness oracle and general ragged-graph path;
-* the banded block-dense path (:mod:`banded`) — MXU batched matmuls for
-  spatially-local giant graphs;
-* the fused Pallas path (:mod:`fused_pallas`) — whole-model GCN inference
-  in a single kernel over the dense batch layout.
+* the banded block-dense path (:mod:`banded`) — batched matmuls for
+  spatially-local giant graphs, with an int8-band variant
+  (:mod:`banded_quant`);
+* the fused Pallas path (:mod:`fused_pallas`) — whole-model GCN and
+  GraphSAGE inference in a single Triton-route kernel over the dense
+  batch layout.
 """
 
 from connectome_gnn_jax.ops.banded import (
@@ -46,8 +48,8 @@ from connectome_gnn_jax.ops.banded_quant import (
 from connectome_gnn_jax.ops.fused_pallas import (
     forward_auto,
     fused_gcn_forward,
+    fused_kernel_for,
     fused_sage_forward,
-    gcn_forward_auto,
 )
 from connectome_gnn_jax.ops.gcn_norm import GCNNorm, gcn_normalize
 from connectome_gnn_jax.ops.segment import (
@@ -83,8 +85,8 @@ __all__ = [
     "coo_spmm",
     "forward_auto",
     "fused_gcn_forward",
+    "fused_kernel_for",
     "fused_sage_forward",
-    "gcn_forward_auto",
     "gcn_normalize",
     "gcn_normalize_banded",
     "gcn_normalize_hybrid",

@@ -1,8 +1,7 @@
-"""Banded block-dense SpMM — the MXU path for giant spatially-local graphs.
+"""Banded block-dense SpMM — the matmul path for giant spatially-local graphs.
 
-TPUs have no fast random row-gather, so classic CSR SpMM (gather →
-segment-sum) is scalar-bound (~70 M edges/s measured on v5e via XLA
-scatter).  But voxel-level connectomes — and most mesh/space-embedded
+Classic CSR SpMM (gather → segment-sum) is bound by random row access.
+But voxel-level connectomes — and most mesh/space-embedded
 graphs — are *local*: after a spatial or Reverse-Cuthill-McKee ordering
 (:func:`connectome_gnn_jax.data.reorder.reverse_cuthill_mckee`), every
 edge connects nodes within a bounded index distance.  That turns the
@@ -16,11 +15,10 @@ and SpMM into a batched dense contraction
 
     out[rb] = Σ_d band[rb, d] @ x_blocks[rb + d - W]
 
-which is pure MXU work at full rate: the sender "gather" collapses to a
+which is dense matmul work: the sender "gather" collapses to a
 *block-index* shift (regular, XLA-friendly), and the only waste is block
-sparsity (empty entries inside tiles).  Measured ≳20× over the scatter
-path at connectome-like locality; the denser the blocks, the closer to
-the matmul roofline.
+sparsity (empty entries inside tiles); the denser the blocks, the closer
+to the matmul roofline.
 
 Blocks are receiver-major like the dense batch layout: ``band[rb, d, i, j]``
 is the weight of edge ``(sender = (rb+d-W)·block + j) → (receiver =
@@ -112,13 +110,11 @@ def banded_spmm(a: BandedMatrix, x: jnp.ndarray) -> jnp.ndarray:
 
     Sender blocks are materialized as a shifted block-window view (a
     coarse block-level take, not a per-row gather), then contracted with
-    the band in one batched ``einsum`` on the MXU.
+    the band in one batched ``einsum``.
 
-    Differentiable wrt ``x`` through a custom VJP (round 5): XLA's
-    autodiff transpose of the block-window ``take`` is a SCATTER-ADD
-    over the overlapping windows — measured as the dominant share of
-    the f32 train step's unattributed backward time
-    (TRAIN_DIAG_r05.json).  The custom backward computes
+    Differentiable wrt ``x`` through a custom VJP: XLA's autodiff
+    transpose of the block-window ``take`` is a SCATTER-ADD over the
+    overlapping windows.  The custom backward computes
     ``x̄ = Aᵀ·ȳ`` as one batched einsum (``windows_bar[rb, d] =
     band[rb, d]ᵀ · ȳ[rb]``) plus ``2W+1`` STATIC slice-adds — dense
     regular ops only.  The adjacency is training data, not a parameter:
@@ -126,11 +122,8 @@ def banded_spmm(a: BandedMatrix, x: jnp.ndarray) -> jnp.ndarray:
 
     The band may be stored **bfloat16** (``a._replace(band=a.band.
     astype(jnp.bfloat16))``) for HALF the resident bytes (5.37 → 2.7 GB
-    at the 1M/±512 config — a 2× bigger banded graph per chip).  On
-    TPU this costs NOTHING numerically: the HLO shows XLA's conv
-    lowering converts f32 band operands to bf16 anyway (f32
-    accumulation either way; F32_ABLATION_r05.json measured identical
-    step times for f32- and bf16-stored bands).  Accumulation stays
+    at the 1M/±512 config — a 2× bigger banded graph per device), at
+    bf16 rounding of the band entries.  Accumulation stays
     ``preferred_element_type=float32`` in both directions.
     """
     return _banded_spmm_vjp(a.band, x, a.num_nodes, int(x.shape[0]))
@@ -185,9 +178,8 @@ def _banded_spmm_bwd(num_nodes: int, x_rows: int, res, g):
     # PER DIAGONAL + a static slice-add.  Deliberately NOT one
     # [NB, 2W+1, block, F] windows_bar einsum: that tensor's layout is
     # contested between the conv-lowered contraction and its consumers,
-    # and XLA resolves it with ~1.3 GB layout-conversion copies
-    # (measured as the f32 step's unattributed backward time —
-    # F32_ABLATION_r05.json / the HLO's {2,3,0,1} copies).
+    # and XLA resolves it with band-sized layout-conversion copies
+    # (visible in the HLO as {2,3,0,1} copies).
     xbar_blocks = jnp.zeros((nb + 2 * W, block, F), jnp.float32)
     for d in range(2 * W + 1):
         contrib = jnp.einsum(
@@ -329,7 +321,7 @@ class HybridMatrix(NamedTuple):
 
     Real graphs are rarely *purely* bandable: small-world connectomes keep
     a few long-range shortcuts even after RCM reordering.  The hybrid form
-    routes the local bulk through the MXU banded path and only the
+    routes the local bulk through the banded matmul path and only the
     out-of-band remainder through the scatter path — recovering most of
     the ~40× banded speedup on graphs where a pure band would be rejected
     or enormous.
@@ -441,7 +433,7 @@ def hybrid_block_diag(parts) -> tuple["HybridMatrix", jnp.ndarray]:
 def hybrid_spmm(
     a: HybridMatrix, x: jnp.ndarray, *, remainder_chunk: int | None = None
 ) -> jnp.ndarray:
-    """``A @ x`` for the hybrid form: banded MXU bulk + scatter remainder.
+    """``A @ x`` for the hybrid form: banded matmul bulk + scatter remainder.
 
     ``remainder_chunk`` bounds device memory when the remainder is giant
     (XLA materializes the gathered messages; see

@@ -1,32 +1,26 @@
-"""Int8-quantized banded SpMM — beating HBM bandwidth at north-star scale.
+"""Int8-quantized banded SpMM: a quarter of the band bytes of the f32 path.
 
 The f32 banded path (:func:`~connectome_gnn_jax.ops.banded.banded_spmm`)
-is HBM-bound on *band bytes* at the 1M-node config (~5.4 GB per pass;
-XLA runs it at ~88% of achievable bandwidth — see the measured
-comparison in ``ops/banded_pallas.py``).  The only way past it is to
-shrink the dominant traffic: this module stores the band as **int8 with
-one f32 scale per (row-block, diagonal) tile** (4× less band traffic)
-and streams activations as bf16 (2× less), with all accumulation in f32
-on the MXU.  XLA cannot express "dequantize inside the contraction
-without materializing the f32 band", so this is exactly the case the
-Pallas kernel was kept for (``ops/banded_pallas.py`` docstring).
+reads the whole ``[NB, 2W+1, block, block]`` band on every pass, and at
+giant-graph scale those bytes dominate.  This module stores the band as
+**int8 with one f32 scale per (row-block, diagonal) tile** (4× fewer
+band bytes) and streams activations as bf16 (2× fewer), with all
+accumulation in f32.
+
+A tile's scale factors out of its product, ``(s·Q) @ x = s·(Q @ x)``, so
+each diagonal ``d`` is one batched ``dot_general`` of the int8 tiles
+(converted to bf16) with the shifted activation blocks, accumulated in
+f32, and the per-tile scale is applied to the product afterwards:
+
+    out[rb] = Σ_d  scales[rb, d] · (band_q[rb, d] @ x_blocks[rb + d])
+
+The w8a8 variant also quantizes activations per column block and runs
+``int8 × int8 → int32`` products.
 
 Quantization error is bounded per entry by ``scale/2 = tile_maxabs/254``
 (round-to-nearest), i.e. ~0.2% of the tile's largest weight; the bf16
 activation cast contributes ≤2⁻⁸ relative.  The equivalence bound vs the
 f32 path is asserted in ``tests/test_banded_quant.py``.
-
-Kernel structure (``banded_spmm_quant``): the grid walks panels of ``R``
-row blocks; per step Mosaic double-buffers the ``[R, 2W+1, block,
-block]`` int8 band slab and ``K = 1 + ceil(2W/R)`` shifted bf16
-activation refs (consecutive panels overlap by ``2W`` blocks — the
-multi-ref trick expresses the overlapping window with block-aligned
-index maps).  Panels amortize per-step pipeline overhead AND cut
-activation re-reads from ``2W+1``× (the per-block f32 kernel) to
-``(R+2W)/R``×.
-
-Reference counterpart: the torch scatter ops this whole banded family
-replaces (`/root/reference/connectome_gnn/models.py:45-54`).
 """
 
 from __future__ import annotations
@@ -36,8 +30,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
 
 from connectome_gnn_jax.ops.banded import BandedMatrix
 
@@ -84,7 +77,7 @@ def quantize_band(a: BandedMatrix) -> QuantizedBandedMatrix:
 
 
 def dequantize_band(q: QuantizedBandedMatrix) -> BandedMatrix:
-    """f32 band reconstruction — the XLA-path oracle for the kernel."""
+    """f32 band reconstruction — the oracle for the quantized products."""
     band = q.band_q.astype(jnp.float32) * q.scales[:, :, None, None]
     return BandedMatrix(band, q.num_nodes, q.bandwidth)
 
@@ -92,15 +85,48 @@ def dequantize_band(q: QuantizedBandedMatrix) -> BandedMatrix:
 def banded_spmm_quant_xla(
     q: QuantizedBandedMatrix, x: jnp.ndarray
 ) -> jnp.ndarray:
-    """``A_q @ x`` via XLA: dequantize then einsum.
+    """``A_q @ x`` by dequantizing to an f32 band, then the f32 einsum.
 
-    Materializes the f32 band (4× the int8 traffic) — exists as the
-    correctness oracle and the honest XLA baseline the Pallas kernel is
-    measured against.
+    Materializes the f32 band (4× the int8 bytes); the correctness
+    oracle for :func:`banded_spmm_quant`.
     """
     from connectome_gnn_jax.ops.banded import banded_spmm
 
     return banded_spmm(dequantize_band(q), x)
+
+
+def _pad_node_blocks(x: jnp.ndarray, num_nodes: int, nb: int, W: int,
+                     block: int, axis: int) -> jnp.ndarray:
+    """Zero-pad ``x[:num_nodes]`` along ``axis`` into the W-shifted frame
+    of ``nb + 2W`` node blocks: padded block ``w`` holds nodes
+    ``(w - W)·block ...``."""
+    x = jax.lax.slice_in_dim(x, 0, num_nodes, axis=axis)
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (W * block, (nb + W) * block - num_nodes)
+    return jnp.pad(x, pad)
+
+
+def banded_spmm_quant(
+    q: QuantizedBandedMatrix, x: jnp.ndarray
+) -> jnp.ndarray:
+    """``A_q @ x`` (int8 band, bf16 x, f32 accumulation).
+
+    Returns f32 ``[num_nodes, F]``: one batched bf16 product per
+    diagonal, each scaled by its tiles' scales.
+    """
+    block, nb, W = q.block, q.num_blocks, q.bandwidth
+    F = x.shape[1]
+    x_blocks = _pad_node_blocks(
+        x.astype(jnp.bfloat16), q.num_nodes, nb, W, block, axis=0
+    ).reshape(nb + 2 * W, block, F)
+    out = jnp.zeros((nb, block, F), jnp.float32)
+    for d in range(2 * W + 1):
+        prod = jnp.einsum(
+            "nrc,ncf->nrf", q.band_q[:, d].astype(jnp.bfloat16),
+            x_blocks[d : d + nb], preferred_element_type=jnp.float32,
+        )
+        out = out + q.scales[:, d, None, None] * prod
+    return out.reshape(nb * block, F)[: q.num_nodes]
 
 
 class QuantizedHybridMatrix(NamedTuple):
@@ -130,19 +156,13 @@ def quantize_hybrid(h) -> QuantizedHybridMatrix:
 
 
 def hybrid_spmm_quant(
-    a: QuantizedHybridMatrix,
-    x: jnp.ndarray,
-    *,
-    rows_per_step: int = 8,
-    interpret: bool = False,
+    a: QuantizedHybridMatrix, x: jnp.ndarray
 ) -> jnp.ndarray:
-    """``A @ x`` for the quantized hybrid form: int8-band Pallas bulk +
-    f32 scatter remainder."""
+    """``A @ x`` for the quantized hybrid form: int8-band bulk + f32
+    scatter remainder."""
     from connectome_gnn_jax.ops.segment import coo_spmm
 
-    out = banded_spmm_quant(
-        a.band, x, rows_per_step=rows_per_step, interpret=interpret
-    )
+    out = banded_spmm_quant(a.band, x)
     rem = coo_spmm(
         a.remainder_weights,
         a.remainder_senders,
@@ -159,11 +179,8 @@ class QuantizedBandedMatrixFM(NamedTuple):
 
     ``band_qT`` holds the per-diagonal tiles TRANSPOSED
     (``[NB, 2W+1, block(sender), block(receiver)]``) so the SpMM runs as
-    ``outT = xT_window @ tileT`` with activations living as ``[F, N]``.
-    Feature-major is the layout the manual-DMA kernel requires (DMA
-    slices must be 128-lane aligned, which ``[N, F]`` buffers with F=64
-    are not) — and the layout a serving stack should keep end-to-end;
-    see :func:`banded_spmm_quant_fm`.
+    ``outT = xT_window @ tileT`` with activations living as ``[F, N]``
+    across layers; see :func:`banded_spmm_quant_fm`.
     """
 
     band_qT: jnp.ndarray
@@ -187,126 +204,36 @@ def to_feature_major(q: QuantizedBandedMatrix) -> QuantizedBandedMatrixFM:
     )
 
 
+def _xT_blocks(q: QuantizedBandedMatrixFM, xT: jnp.ndarray, dtype):
+    """``[F, num_nodes]`` → ``[F, nb + 2W, block]`` in the W-shifted frame."""
+    F = xT.shape[0]
+    return _pad_node_blocks(
+        xT.astype(dtype), q.num_nodes, q.num_blocks, q.bandwidth, q.block,
+        axis=1,
+    ).reshape(F, q.num_blocks + 2 * q.bandwidth, q.block)
+
+
 def banded_spmm_quant_fm(
-    q: QuantizedBandedMatrixFM,
-    xT: jnp.ndarray,
-    *,
-    rows_per_step: int = 32,
-    interpret: bool = False,
+    q: QuantizedBandedMatrixFM, xT: jnp.ndarray
 ) -> jnp.ndarray:
     """``(A_q @ x)ᵀ`` with feature-major activations: ``xT`` is
     ``[F, num_nodes]``; returns ``[F, num_nodes]`` f32.
-
-    One Pallas grid step drives an explicitly double-buffered pipeline:
-    async HBM→VMEM copies of the next int8 band panel and bf16 activation
-    window overlap the current panel's MXU dots, and each out panel DMAs
-    back to HBM while the next one computes.  Measured 1.7× faster than
-    the auto-pipelined row-major kernel at the 1M-node config (4.6 ms vs
-    7.8 ms — Mosaic's per-grid-step overhead dominates there; see
-    ``QUANT_r02.json``), i.e. 2.1× over the f32 XLA einsum at ~70% of the
-    traffic-ideal time.
 
     A layout-persistent caller (``BandedNodeGCN.apply_quantized``) keeps
     activations ``[F, N]`` across layers, paying the transpose only at
     the model boundary.
     """
-    block, nb, W = q.block, q.num_blocks, q.bandwidth
-    D = 2 * W + 1
-    padded = nb * block
+    nb, W = q.num_blocks, q.bandwidth
     F = xT.shape[0]
-    R = max(1, min(int(rows_per_step), nb))
-    while nb % R:
-        R -= 1
-    num_chunks = nb // R
-    win = R + 2 * W
-
-    xT_pad = jnp.zeros((F, (nb + 2 * W) * block), jnp.bfloat16)
-    xT_pad = jax.lax.dynamic_update_slice(
-        xT_pad, xT[:, : q.num_nodes].astype(jnp.bfloat16), (0, W * block)
-    )
-
-    def kernel(scales_ref, band_hbm, x_hbm, out_hbm,
-               band_buf, x_buf, out_buf, band_sem, x_sem, out_sem):
-        def band_dma(slot, i):
-            return pltpu.make_async_copy(
-                band_hbm.at[pl.ds(i * R, R)], band_buf.at[slot],
-                band_sem.at[slot],
-            )
-
-        def x_dma(slot, i):
-            return pltpu.make_async_copy(
-                x_hbm.at[:, pl.ds(i * R * block, win * block)],
-                x_buf.at[slot], x_sem.at[slot],
-            )
-
-        def out_dma(slot, i):
-            return pltpu.make_async_copy(
-                out_buf.at[slot],
-                out_hbm.at[:, pl.ds(i * R * block, R * block)],
-                out_sem.at[slot],
-            )
-
-        band_dma(0, 0).start()
-        x_dma(0, 0).start()
-
-        def body(i, _):
-            slot = jax.lax.rem(i, 2)
-
-            @pl.when(i + 1 < num_chunks)
-            def _():
-                band_dma(1 - slot, i + 1).start()
-                x_dma(1 - slot, i + 1).start()
-
-            band_dma(slot, i).wait()
-            x_dma(slot, i).wait()
-
-            # out_buf[slot] may still be draining chunk i-2's store
-            @pl.when(i >= 2)
-            def _():
-                out_dma(slot, i - 2).wait()
-
-            for r in range(R):
-                acc = jnp.zeros((F, block), jnp.float32)
-                for d in range(D):
-                    tileT = band_buf[slot, r, d].astype(jnp.bfloat16)
-                    xw = x_buf[slot, :, (r + d) * block:(r + d + 1) * block]
-                    acc += scales_ref[(i * R + r) * D + d] * jnp.dot(
-                        xw, tileT, preferred_element_type=jnp.float32,
-                    )
-                out_buf[slot, :, r * block:(r + 1) * block] = acc
-            out_dma(slot, i).start()
-
-        jax.lax.fori_loop(0, num_chunks, body, None)
-        if num_chunks >= 2:
-            out_dma((num_chunks - 2) % 2, num_chunks - 2).wait()
-        out_dma((num_chunks - 1) % 2, num_chunks - 1).wait()
-
-    outT = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(),
-            in_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),
-                pl.BlockSpec(memory_space=pl.ANY),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pl.ANY),
-            scratch_shapes=[
-                pltpu.VMEM((2, R, D, block, block), jnp.int8),
-                pltpu.VMEM((2, F, win * block), jnp.bfloat16),
-                pltpu.VMEM((2, F, R * block), jnp.float32),
-                pltpu.SemaphoreType.DMA((2,)),
-                pltpu.SemaphoreType.DMA((2,)),
-                pltpu.SemaphoreType.DMA((2,)),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((F, padded), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(q.scales.reshape(-1), q.band_qT, xT_pad)
-    return outT[:, : q.num_nodes]
+    xb = _xT_blocks(q, xT, jnp.bfloat16)
+    outT = jnp.zeros((F, nb, q.block), jnp.float32)
+    for d in range(2 * W + 1):
+        prod = jnp.einsum(
+            "ncr,fnc->fnr", q.band_qT[:, d].astype(jnp.bfloat16),
+            xb[:, d : d + nb], preferred_element_type=jnp.float32,
+        )
+        outT = outT + q.scales[None, :, d, None] * prod
+    return outT.reshape(F, nb * q.block)[:, : q.num_nodes]
 
 
 def quantize_activations_fm(
@@ -331,330 +258,33 @@ def quantize_activations_fm(
 
 
 def banded_spmm_quant_fm_w8a8(
-    q: QuantizedBandedMatrixFM,
-    xT: jnp.ndarray,
-    *,
-    rows_per_step: int = 32,
-    interpret: bool = False,
+    q: QuantizedBandedMatrixFM, xT: jnp.ndarray
 ) -> jnp.ndarray:
-    """``(A_q @ x)ᵀ`` with int8 band AND int8 activations: the manual-DMA
-    pipeline of :func:`banded_spmm_quant_fm` driving native
-    int8×int8→int32 MXU dots with a per-(tile, x-block) f32 scale fixup.
+    """``(A_q @ x)ᵀ`` with int8 band AND int8 activations.
 
-    Measured 2.69 ms at the 1M-node config — **97% of its traffic-ideal
-    time and 1.7× over the bf16-activation kernel** (FM_DIAG_r03.json).
-    The bf16 kernel's loss was never bandwidth or MXU work: its per-tile
-    ``int8→bf16`` conversions lower to VMEM relayout copies that contend
-    with the HBM DMA streams (the kernel runs at DMA-floor speed with
-    compute measured at 1.3 ms); consuming int8 directly removes that
-    traffic entirely and halves the x stream.  Additional error vs the
-    w8a16 kernel is the per-block activation rounding (~0.4% per entry,
-    measured ~1.2% relative end-to-end vs f32).
+    Activations are quantized per column block
+    (:func:`quantize_activations_fm`); each diagonal is one batched
+    ``int8 × int8 → int32`` product, scaled by its tile scale times its
+    activation block's scale.  Additional error vs the bf16-activation
+    path is the per-block activation rounding (~0.4% per entry).
 
-    ``xT`` is ``[F, num_nodes]`` f32/bf16; quantization happens inside
-    (one fused XLA pass, ~0.76 ms standalone at 1M nodes — fuses into
-    the previous layer's epilogue under a whole-model jit).
+    ``xT`` is ``[F, num_nodes]`` f32/bf16; returns ``[F, num_nodes]``.
     """
-    block, nb, W = q.block, q.num_blocks, q.bandwidth
-    D = 2 * W + 1
-    padded = nb * block
+    nb, W, block = q.num_blocks, q.bandwidth, q.block
     F = xT.shape[0]
-    R = max(1, min(int(rows_per_step), nb))
-    while nb % R:
-        R -= 1
-    num_chunks = nb // R
-    win = R + 2 * W
-
-    xT_pad = jnp.zeros((F, (nb + 2 * W) * block), jnp.float32)
-    xT_pad = jax.lax.dynamic_update_slice(
-        xT_pad, xT[:, : q.num_nodes].astype(jnp.float32), (0, W * block)
+    xq, xscales = quantize_activations_fm(
+        _xT_blocks(q, xT, jnp.float32).reshape(F, -1), block
     )
-    xq, xscales = quantize_activations_fm(xT_pad, block)
-
-    def kernel(scales_ref, xscale_ref, band_hbm, x_hbm, out_hbm,
-               band_buf, x_buf, out_buf, band_sem, x_sem, out_sem):
-        def band_dma(slot, i):
-            return pltpu.make_async_copy(
-                band_hbm.at[pl.ds(i * R, R)], band_buf.at[slot],
-                band_sem.at[slot],
-            )
-
-        def x_dma(slot, i):
-            return pltpu.make_async_copy(
-                x_hbm.at[:, pl.ds(i * R * block, win * block)],
-                x_buf.at[slot], x_sem.at[slot],
-            )
-
-        def out_dma(slot, i):
-            return pltpu.make_async_copy(
-                out_buf.at[slot],
-                out_hbm.at[:, pl.ds(i * R * block, R * block)],
-                out_sem.at[slot],
-            )
-
-        band_dma(0, 0).start()
-        x_dma(0, 0).start()
-
-        def body(i, _):
-            slot = jax.lax.rem(i, 2)
-
-            @pl.when(i + 1 < num_chunks)
-            def _():
-                band_dma(1 - slot, i + 1).start()
-                x_dma(1 - slot, i + 1).start()
-
-            band_dma(slot, i).wait()
-            x_dma(slot, i).wait()
-
-            @pl.when(i >= 2)
-            def _():
-                out_dma(slot, i - 2).wait()
-
-            for r in range(R):
-                acc = jnp.zeros((F, block), jnp.float32)
-                for d in range(D):
-                    tileT = band_buf[slot, r, d]
-                    xw = x_buf[slot, :, (r + d) * block:(r + d + 1) * block]
-                    dot_i32 = jnp.dot(
-                        xw, tileT, preferred_element_type=jnp.int32
-                    )
-                    s = (
-                        scales_ref[(i * R + r) * D + d]
-                        * xscale_ref[i * R + r + d]
-                    )
-                    acc += s * dot_i32.astype(jnp.float32)
-                out_buf[slot, :, r * block:(r + 1) * block] = acc
-            out_dma(slot, i).start()
-
-        jax.lax.fori_loop(0, num_chunks, body, None)
-        if num_chunks >= 2:
-            out_dma((num_chunks - 2) % 2, num_chunks - 2).wait()
-        out_dma((num_chunks - 1) % 2, num_chunks - 1).wait()
-
-    outT = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(),
-            in_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),
-                pl.BlockSpec(memory_space=pl.ANY),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pl.ANY),
-            scratch_shapes=[
-                pltpu.VMEM((2, R, D, block, block), jnp.int8),
-                pltpu.VMEM((2, F, win * block), jnp.int8),
-                pltpu.VMEM((2, F, R * block), jnp.float32),
-                pltpu.SemaphoreType.DMA((2,)),
-                pltpu.SemaphoreType.DMA((2,)),
-                pltpu.SemaphoreType.DMA((2,)),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((F, padded), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(q.scales.reshape(-1), xscales, q.band_qT, xq)
-    return outT[:, : q.num_nodes]
-
-
-def to_blocked(xT_pad: jnp.ndarray, block: int) -> jnp.ndarray:
-    """``[F, NB·block]`` feature-major → ``[NB, F, block]`` BLOCKED
-    layout: node blocks lead, so every DMA slab the blocked kernel
-    issues (x window, out panel) is a CONTIGUOUS leading-dim slice
-    instead of an F-segment strided copy.  FM_DIAG_r03 measured the
-    strided copies as ~0.9 ms of the fm kernel's residual at the
-    1M-node config; a blocked training stack keeps this layout
-    end-to-end and pays the relayout only at the model boundary."""
-    F, total = xT_pad.shape
-    return jnp.swapaxes(xT_pad.reshape(F, total // block, block), 0, 1)
-
-
-def from_blocked(xb: jnp.ndarray) -> jnp.ndarray:
-    """``[NB, F, block]`` blocked → ``[F, NB·block]`` feature-major."""
-    nb, F, block = xb.shape
-    return jnp.swapaxes(xb, 0, 1).reshape(F, nb * block)
-
-
-def banded_spmm_quant_blocked(
-    q: QuantizedBandedMatrixFM,
-    xb_pad: jnp.ndarray,
-    *,
-    rows_per_step: int = 32,
-    depth: int = 2,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """``A_q @ x`` on BLOCKED activations: ``xb_pad`` is
-    ``[nb + 2W, F, block]`` (the padded feature-major array re-chunked
-    block-major, :func:`to_blocked`); returns ``[nb, F, block]`` f32.
-
-    Same manual-DMA double(+)-buffered pipeline and int8×bf16 MXU dots
-    as :func:`banded_spmm_quant_fm`, but the x window and out panel are
-    contiguous leading-dim slabs — FM_DIAG_r03's ``fm_blocked`` variant
-    (3.68 ms = 10.8 G edges/s at the 1M config vs the fm kernel's
-    4.6 ms) promoted from the diagnostic harness to a product kernel at
-    ZERO extra quantization error.  ``depth`` is the pipeline depth
-    (2 = classic double buffering).
-    """
-    block, nb, W = q.block, q.num_blocks, q.bandwidth
-    D = 2 * W + 1
-    F = int(xb_pad.shape[1])
-    R = max(1, min(int(rows_per_step), nb))
-    while nb % R:
-        R -= 1
-    S = max(2, int(depth))
-    num_chunks = nb // R
-    win = R + 2 * W
-
-    def kernel(scales_ref, band_hbm, x_hbm, out_hbm,
-               band_buf, x_buf, out_buf, band_sem, x_sem, out_sem):
-        def band_dma(slot, i):
-            return pltpu.make_async_copy(
-                band_hbm.at[pl.ds(i * R, R)], band_buf.at[slot],
-                band_sem.at[slot],
-            )
-
-        def x_dma(slot, i):
-            return pltpu.make_async_copy(
-                x_hbm.at[pl.ds(i * R, win)], x_buf.at[slot], x_sem.at[slot],
-            )
-
-        def out_dma(slot, i):
-            return pltpu.make_async_copy(
-                out_buf.at[slot], out_hbm.at[pl.ds(i * R, R)],
-                out_sem.at[slot],
-            )
-
-        for j in range(min(S - 1, num_chunks)):
-            band_dma(j % S, j).start()
-            x_dma(j % S, j).start()
-
-        def body(i, _):
-            slot = jax.lax.rem(i, S)
-
-            @pl.when(i + S - 1 < num_chunks)
-            def _():
-                nxt = jax.lax.rem(i + S - 1, S)
-                band_dma(nxt, i + S - 1).start()
-                x_dma(nxt, i + S - 1).start()
-
-            band_dma(slot, i).wait()
-            x_dma(slot, i).wait()
-
-            @pl.when(i >= S)
-            def _():
-                out_dma(slot, i - S).wait()
-
-            for r in range(R):
-                acc = jnp.zeros((F, block), jnp.float32)
-                for d in range(D):
-                    tileT = band_buf[slot, r, d].astype(jnp.bfloat16)
-                    xw = x_buf[slot, r + d]
-                    acc += scales_ref[(i * R + r) * D + d] * jnp.dot(
-                        xw, tileT, preferred_element_type=jnp.float32,
-                    )
-                out_buf[slot, r] = acc
-            out_dma(slot, i).start()
-
-        jax.lax.fori_loop(0, num_chunks, body, None)
-        for j in range(max(0, num_chunks - S), num_chunks):
-            out_dma(j % S, j).wait()
-
-    call = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(),
-            in_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),
-                pl.BlockSpec(memory_space=pl.ANY),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pl.ANY),
-            scratch_shapes=[
-                pltpu.VMEM((S, R, D, block, block), jnp.int8),
-                pltpu.VMEM((S, win, F, block), jnp.bfloat16),
-                pltpu.VMEM((S, R, F, block), jnp.float32),
-                pltpu.SemaphoreType.DMA((S,)),
-                pltpu.SemaphoreType.DMA((S,)),
-                pltpu.SemaphoreType.DMA((S,)),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((nb, F, block), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )
-    return call(q.scales.reshape(-1), q.band_qT, xb_pad.astype(jnp.bfloat16))
-
-
-def _pad_blocked(xb: jnp.ndarray, W: int) -> jnp.ndarray:
-    """Add ``W`` zero blocks on each side of the node-block axis (the
-    shifted-window frame the blocked kernel consumes)."""
-    if W == 0:
-        return xb
-    return jnp.pad(xb, ((W, W), (0, 0), (0, 0)))
-
-
-@_partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2))
-def _blocked_trainable(num_nodes, bandwidth, interpret,
-                       band_qT, scales, bandT_qT, scalesT, xb):
-    q = QuantizedBandedMatrixFM(band_qT, scales, num_nodes, bandwidth)
-    return banded_spmm_quant_blocked(
-        q, _pad_blocked(xb, bandwidth), interpret=interpret
-    )
-
-
-def _blocked_trainable_fwd(num_nodes, bandwidth, interpret,
-                           band_qT, scales, bandT_qT, scalesT, xb):
-    out = _blocked_trainable(
-        num_nodes, bandwidth, interpret,
-        band_qT, scales, bandT_qT, scalesT, xb,
-    )
-    return out, (bandT_qT, scalesT)
-
-
-def _blocked_trainable_bwd(num_nodes, bandwidth, interpret, res, gb):
-    import numpy as np
-
-    bandT_qT, scalesT = res
-    qT = QuantizedBandedMatrixFM(bandT_qT, scalesT, num_nodes, bandwidth)
-    dxb = banded_spmm_quant_blocked(
-        qT, _pad_blocked(gb, bandwidth), interpret=interpret
-    )
-    f0 = np.zeros((), jax.dtypes.float0)
-    return (
-        np.broadcast_to(f0, bandT_qT.shape),
-        jnp.zeros_like(scalesT),
-        np.broadcast_to(f0, bandT_qT.shape),
-        jnp.zeros_like(scalesT),
-        dxb,
-    )
-
-
-_blocked_trainable.defvjp(_blocked_trainable_fwd, _blocked_trainable_bwd)
-
-
-def banded_spmm_quant_blocked_grad(
-    q: QuantizedBandedMatrixFM,
-    qT: QuantizedBandedMatrixFM,
-    xb: jnp.ndarray,
-    *,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """TRAINABLE blocked quantized SpMM: ``A_q @ x`` on unpadded blocked
-    activations ``[nb, F, block]`` whose VJP runs the SAME contiguous-DMA
-    kernel on the transposed band (``x̄ = Aᵀ·ȳ``).  The blocked sibling
-    of :func:`banded_spmm_quant_fm_grad` — ~1.25× faster per pass at the
-    1M config (FM_DIAG_r03 ``fm_blocked``) at identical numerics, so a
-    train step's four band passes all run contiguous."""
-    if q.num_nodes != qT.num_nodes or q.bandwidth != qT.bandwidth:
-        raise ValueError("q and qT disagree on geometry")
-    return _blocked_trainable(
-        q.num_nodes, q.bandwidth, interpret,
-        q.band_qT, q.scales, qT.band_qT, qT.scales, xb,
-    )
+    xq = xq.reshape(F, nb + 2 * W, block)
+    outT = jnp.zeros((F, nb, block), jnp.float32)
+    for d in range(2 * W + 1):
+        prod = jnp.einsum(
+            "ncr,fnc->fnr", q.band_qT[:, d], xq[:, d : d + nb],
+            preferred_element_type=jnp.int32,
+        )
+        s = q.scales[:, d] * xscales[d : d + nb]
+        outT = outT + s[None, :, None] * prod.astype(jnp.float32)
+    return outT.reshape(F, nb * block)[:, : q.num_nodes]
 
 
 def transpose_quantized(q: QuantizedBandedMatrix) -> QuantizedBandedMatrix:
@@ -664,10 +294,8 @@ def transpose_quantized(q: QuantizedBandedMatrix) -> QuantizedBandedMatrix:
     ``quantize(transpose(A)) == transpose(quantize(A))`` bit-for-bit
     (same scales on the moved tiles, tile contents transposed; shifted-in
     zero rows keep the all-zero convention ``scale=1``).  Transposing the
-    int8 band instead of the f32 one cuts the peak HBM of training prep
-    ~4× (at 1M nodes: ~7 GB instead of ~16 GB — the f32 route's
-    stack+source transient does not fit a 16 GB chip alongside the
-    normalized band).  Same tile geometry as
+    int8 band instead of the f32 one cuts the peak device memory of
+    training prep ~4×.  Same tile geometry as
     :func:`~connectome_gnn_jax.ops.banded.transpose_banded`.
     """
     W, blk = q.bandwidth, q.block
@@ -698,33 +326,30 @@ def quantize_transposed_fm(band_norm) -> QuantizedBandedMatrixFM:
     """Feature-major quantization of ``Aᵀ`` — the backward operand of the
     trainable quantized SpMM.  Computed as :func:`transpose_quantized` of
     the int8 band (bitwise identical to quantizing the f32 transpose,
-    ~4× less peak HBM).  For a symmetric normalized adjacency
+    ~4× less peak device memory).  For a symmetric normalized adjacency
     (undirected graphs through GCN sym-norm) this is exactly the
     re-indexed forward quantization; for general bands the scales travel
     with their tiles (same per-entry bound either way)."""
     return to_feature_major(transpose_quantized(quantize_band(band_norm)))
 
 
-@_partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2))
-def _fm_trainable(num_nodes, bandwidth, interpret,
-                  band_qT, scales, bandT_qT, scalesT, xT):
+@_partial(jax.custom_vjp, nondiff_argnums=(0, 1))
+def _fm_trainable(num_nodes, bandwidth, band_qT, scales, bandT_qT, scalesT,
+                  xT):
     q = QuantizedBandedMatrixFM(band_qT, scales, num_nodes, bandwidth)
-    return banded_spmm_quant_fm(q, xT, interpret=interpret)
+    return banded_spmm_quant_fm(q, xT)
 
 
-def _fm_trainable_fwd(num_nodes, bandwidth, interpret,
-                      band_qT, scales, bandT_qT, scalesT, xT):
+def _fm_trainable_fwd(num_nodes, bandwidth, band_qT, scales, bandT_qT,
+                      scalesT, xT):
     q = QuantizedBandedMatrixFM(band_qT, scales, num_nodes, bandwidth)
-    out = banded_spmm_quant_fm(q, xT, interpret=interpret)
-    return out, (bandT_qT, scalesT)
+    return banded_spmm_quant_fm(q, xT), (bandT_qT, scalesT)
 
 
-def _fm_trainable_bwd(num_nodes, bandwidth, interpret, res, gT):
-    import numpy as np
-
+def _fm_trainable_bwd(num_nodes, bandwidth, res, gT):
     bandT_qT, scalesT = res
     qT = QuantizedBandedMatrixFM(bandT_qT, scalesT, num_nodes, bandwidth)
-    dxT = banded_spmm_quant_fm(qT, gT, interpret=interpret)
+    dxT = banded_spmm_quant_fm(qT, gT)
     # the quantized operands are constants (int8 primals take float0
     # cotangents; f32 scale zeros are DCE'd by XLA)
     f0 = np.zeros((), jax.dtypes.float0)
@@ -744,111 +369,18 @@ def banded_spmm_quant_fm_grad(
     q: QuantizedBandedMatrixFM,
     qT: QuantizedBandedMatrixFM,
     xT: jnp.ndarray,
-    *,
-    interpret: bool = False,
 ) -> jnp.ndarray:
     """TRAINABLE feature-major quantized SpMM: ``(A_q @ x)ᵀ`` whose VJP
-    w.r.t. ``xT`` runs the SAME manual-DMA int8 kernel on the transposed
-    band (``x̄ᵀ = (Aᵀ·ȳ)ᵀ`` — a banded SpMM with mirrored diagonals,
+    w.r.t. ``xT`` is the same int8 product on the transposed band
+    (``x̄ᵀ = (Aᵀ·ȳ)ᵀ`` — a banded SpMM with mirrored diagonals,
     :func:`~connectome_gnn_jax.ops.banded.transpose_banded`).  Both the
-    forward and backward band reads stay int8 (4× less HBM traffic than
-    the f32 einsum each way); gradient error carries the same per-entry
-    quantization bound as the forward.  ``qT`` comes from
-    :func:`quantize_transposed_fm` at prepare time.
+    forward and backward band reads stay int8; gradient error carries
+    the same per-entry quantization bound as the forward.  ``qT`` comes
+    from :func:`quantize_transposed_fm` at prepare time.
     """
     if q.num_nodes != qT.num_nodes or q.bandwidth != qT.bandwidth:
         raise ValueError("q and qT disagree on geometry")
     return _fm_trainable(
-        q.num_nodes, q.bandwidth, interpret,
+        q.num_nodes, q.bandwidth,
         q.band_qT, q.scales, qT.band_qT, qT.scales, xT,
     )
-
-
-def banded_spmm_quant(
-    q: QuantizedBandedMatrix,
-    x: jnp.ndarray,
-    *,
-    rows_per_step: int = 8,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """``A_q @ x`` in one fused Pallas kernel (int8 band, bf16 x, f32 acc).
-
-    Returns f32 ``[num_nodes, F]``.  ``rows_per_step`` is the panel size
-    ``R`` (clamped to the largest divisor of the block count); per grid
-    step the kernel performs ``R·(2W+1)`` MXU matmuls
-    ``scale · (int8→bf16 tile) @ bf16 x-block`` accumulated in f32.
-    """
-    block, nb, W = q.block, q.num_blocks, q.bandwidth
-    D = 2 * W + 1
-    padded = nb * block
-    F = x.shape[1]
-
-    R = max(1, min(int(rows_per_step), nb))
-    while nb % R:
-        R -= 1
-    K = 1 + -(-2 * W // R)  # shifted refs covering the R+2W-block window
-
-    # x blocks in the W-shifted frame: x_pad[w] = x[(w-W)·block : ...]
-    x_pad = jnp.zeros(((nb // R + K) * R * block, F), jnp.bfloat16)
-    x_pad = jax.lax.dynamic_update_slice(
-        x_pad, x[: q.num_nodes].astype(jnp.bfloat16), (W * block, 0)
-    ).reshape(-1, block, F)
-
-    def kernel(scales_ref, band_ref, *refs):
-        # scales_ref is the scalar-prefetch arg: the flat [NB·D] f32
-        # table in SMEM (unblocked — block tiling would demand
-        # (8, 128)-aligned blocks Mosaic rejects for a [R, D] slab)
-        x_refs, out_ref = refs[:-1], refs[-1]
-        i = pl.program_id(0)
-        for r in range(R):
-            acc = jnp.zeros((block, F), jnp.float32)
-            for d in range(D):
-                k, row = divmod(r + d, R)
-                tile = band_ref[r, d].astype(jnp.bfloat16)
-                acc += scales_ref[(i * R + r) * D + d] * jnp.dot(
-                    tile, x_refs[k][row],
-                    preferred_element_type=jnp.float32,
-                )
-            out_ref[r] = acc
-
-    def x_spec(k):
-        return pl.BlockSpec(
-            (R, block, F), lambda i, s_ref, k=k: (i + k, 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(nb // R,),
-            in_specs=[
-                pl.BlockSpec(
-                    (R, D, block, block), lambda i, s_ref: (i, 0, 0, 0),
-                    memory_space=pltpu.VMEM,
-                ),
-            ]
-            + [x_spec(k) for k in range(K)],
-            out_specs=pl.BlockSpec(
-                (R, block, F), lambda i, s_ref: (i, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        out_shape=jax.ShapeDtypeStruct((nb, block, F), jnp.float32),
-        # The default scoped-vmem budget (16 MB on v5e) caps the panel at
-        # R=8; raising it lets larger panels amortize pipeline overhead
-        # and x re-reads (measured fastest at R=16-32, ~93 MB of VMEM).
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nb * D * block * block * F,
-            bytes_accessed=(
-                q.band_q.size + x_pad.size * 2 + nb * block * F * 4
-            ),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(q.scales.reshape(-1), q.band_q, *([x_pad] * K))
-    return out.reshape(padded, F)[: q.num_nodes]

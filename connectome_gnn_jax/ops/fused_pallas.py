@@ -1,34 +1,34 @@
-"""Fused Pallas TPU kernel: whole-model GCN inference in one dispatch.
+"""Fused Pallas kernels: whole-model GCN / GraphSAGE inference in one launch.
 
-At connectome scale (tens to hundreds of 84-360-node graphs per batch), a
-jitted forward pass is ~30 small XLA ops; the math itself is microseconds
-on the MXU, so both dispatch latency and inter-op HBM traffic dominate.
-This kernel runs the ENTIRE GCNConnectome inference forward — L
-symmetric-normalized convolutions with folded BatchNorm (eval mode) + ReLU,
-masked mean-pool, and the 2-layer MLP head — inside a single
-``pallas_call``, keeping every intermediate in VMEM.
+At connectome scale (batches of 84-node graphs), the math of a forward
+pass is under a microsecond per graph, while XLA's plan for
+``model.apply`` is a chain of small kernels, each paying a launch and a
+round trip of its intermediates through device memory.  These kernels
+run the ENTIRE eval-mode forward — L convolutions with folded BatchNorm
+and ReLU, the masked mean-pool and the 2-layer MLP head — inside one
+``pallas_call`` written for the Triton route.
 
-Blocking strategy: the grid iterates over *groups of G graphs*; each step
-DMAs a ``[G, n, n]`` adjacency slab + features into VMEM (double-buffered
-by the Pallas pipeline, so DMA overlaps compute) and loops over the G
-graphs locally.  ``G`` is chosen at call time as the largest batch divisor
-whose working set fits a VMEM budget — small batches collapse to a single
-grid step (minimum latency), giant packed batches stream through VMEM
-without ever materializing whole-batch intermediates in HBM.
+Layout: one program per graph (``grid=(B,)``).  The program holds its
+graph's ``[n, n]`` adjacency and ``[n, H]`` activations on chip from the
+first convolution to the logits, so nothing crosses programs and the
+head, which is row-wise per graph, runs in the same program.  Triton
+wants power-of-two shapes and ``pl.dot`` operands of at least 16 along
+every axis, so the wrapper zero-pads nodes, features, hidden and head
+widths; padded nodes are masked out of the pool and padded channels stay
+exactly zero.
 
 Eval-mode BatchNorm and the conv bias fold into one affine per layer
-(computed on host at call time from params/state):
+(computed at call time from params/state):
 
     BN(z + b_conv) = z * s' + t',   s' = scale / sqrt(var + eps)
                                     t' = (b_conv - mean) * s' + bias
 
-Numerics match :meth:`GCNConnectome.apply` on a dense batch to f32
-round-off (validated in ``tests/test_fused.py``; bitwise-identical on TPU
-in practice).
+Precision: the kernels' float32 dots follow
+``jax.default_matmul_precision`` as XLA's do — TF32 on the tensor cores
+by default, IEEE float32 under ``"highest"`` or ``"float32"``.
 
-Current scope: inference (eval) path, hidden-width-uniform models (all
-conv layers ``H → H`` after the input layer), dense batch layout.
-Training and the CSR giant-graph path use the XLA ops.
+Scope: inference, hidden-width-uniform models, dense batch layout with
+``n <= 128`` nodes per graph; larger graphs and training use XLA.
 """
 
 from __future__ import annotations
@@ -38,92 +38,131 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
+
+from connectome_gnn_jax.utils.pytree import pytree_dataclass, static_field
 
 EPS = 1e-8
 
-#: VMEM budget for the double-buffered per-step operand slabs.
-# Sized from the round-4 sweep (benchmarks/fused_block_sweep.py,
-# FUSED_SWEEP_r04.json): at the packed-512 config G=64 is the fastest
-# group (104.5 vs 109.2 us at G=32), while G=128 exceeds the compiler's
-# 16 MB scoped-VMEM limit (25.6 MB requested — hard compile error, not
-# a spill).  11 MB lands the heuristic on G=64 for the 88-node/H=64
-# shape with ~20% headroom under the scoped limit (the estimate below
-# undercounts the compiler's accounting by about that much at G=128).
-_VMEM_BLOCK_BUDGET = 11 * 1024 * 1024
+#: Largest per-graph node count the fused kernels take; a graph's
+#: adjacency and activations must fit one program's registers and
+#: shared memory.  Larger graphs are batched matmuls XLA runs well.
+MAX_FUSED_NODES = 128
+
+
+def _pow2(v: int, lo: int = 16) -> int:
+    """Smallest power of two ``>= max(v, lo)``."""
+    return max(lo, 1 << (int(v) - 1).bit_length())
+
+
+def _dot_precision() -> jax.lax.Precision:
+    """The in-kernel dot precision matching XLA's for float32 operands."""
+    p = jax.config.jax_default_matmul_precision
+    if p in ("highest", "float32"):
+        return jax.lax.Precision.HIGHEST
+    return jax.lax.Precision.DEFAULT
+
+
+def _pad_to(a: jnp.ndarray, shape) -> jnp.ndarray:
+    return jnp.pad(a, [(0, t - s) for s, t in zip(a.shape, shape)])
+
+
+def _mean_pool_head(h, mask, w_f1, b_f1, w_f2, b_f2):
+    """Masked mean-pool of ``h [n, H]`` and the MLP head, for one graph.
+
+    The head's operands are a single row, below ``pl.dot``'s 16-row
+    minimum, so each layer is a broadcast product reduced over rows.
+    """
+    m = mask[:, None]
+    pooled = jnp.sum(h * m, axis=0) / (jnp.sum(mask) + EPS)          # [H]
+    hidden = jnp.maximum(jnp.sum(pooled[:, None] * w_f1, axis=0) + b_f1, 0.0)
+    return jnp.sum(hidden[:, None] * w_f2, axis=0) + b_f2            # [C]
 
 
 def _fused_gcn_kernel(
-    x_ref,        # [G, n, F]   this group's node features (grid-blocked)
-    adj_ref,      # [G, n, n]   this group's adjacencies (grid-blocked)
-    mask_ref,     # [G, n, 1]   1.0 for real nodes
-    w_in_ref,     # [F, H]      first conv kernel
-    w_h_ref,      # [L-1, H, H] remaining conv kernels
-    bn_scale_ref, # [L, H]      folded affine scale  s'
-    bn_shift_ref, # [L, H]      folded affine shift  t'
-    w_f1_ref,     # [H, H2]     head layer 1
-    b_f1_ref,     # [1, H2]
-    w_f2_ref,     # [H2, C]     head layer 2
-    b_f2_ref,     # [1, C]
-    out_ref,      # [B, C]      logits (full block, written in last step)
-    pooled_ref,   # scratch [S, G, H] — persists across grid steps
+    x_ref,         # [n, F]   this graph's node features
+    adj_ref,       # [n, n]   receiver-major adjacency
+    mask_ref,      # [n]      1.0 for real nodes
+    w_in_ref,      # [F, H]   first conv kernel
+    w_h_ref,       # [max(L-1, 1), H, H] remaining conv kernels
+    bn_scale_ref,  # [L, H]   folded affine scale  s'
+    bn_shift_ref,  # [L, H]   folded affine shift  t'
+    w_f1_ref,      # [H, H2]  head layer 1
+    b_f1_ref,      # [H2]
+    w_f2_ref,      # [H2, C]  head layer 2
+    b_f2_ref,      # [C]
+    out_ref,       # [C]      this graph's logits
     *,
     num_layers: int,
-    graphs_per_block: int,
+    precision,
 ):
-    step = pl.program_id(0)
-    num_steps = pl.num_programs(0)
-    G = graphs_per_block
-
-    adj = adj_ref[:]                          # [G, n, n]
-    m = mask_ref[:]                           # [G, n, 1]
-
-    # Symmetric normalization with self-loop weight 1.0, batched over the
-    # group (reference models.py:94-108; column sums = sender degrees).
-    deg = jnp.sum(adj, axis=1) + 1.0          # [G, n]
+    dot = partial(jnp.dot, precision=precision,
+                  preferred_element_type=jnp.float32)
+    adj = adj_ref[...]
+    # Symmetric normalization with self-loop weight 1.0; column sums are
+    # sender degrees.
+    deg = jnp.sum(adj, axis=0) + 1.0
     dinv = jax.lax.rsqrt(deg + EPS)
-    adj_n = dinv[:, :, None] * adj * dinv[:, None, :]
-    self_n = (dinv * dinv)[:, :, None]        # [G, n, 1]
+    adj_n = dinv[:, None] * adj * dinv[None, :]
+    self_n = (dinv * dinv)[:, None]
 
-    h = x_ref[:]                              # [G, n, F]
+    h = x_ref[...]
     for layer in range(num_layers):
-        w = w_in_ref[:] if layer == 0 else w_h_ref[layer - 1]
-        # [G, n, D] @ [D, H] — plain contraction, one big MXU matmul.
-        hw = jax.lax.dot_general(
-            h, w,
-            dimension_numbers=(((2,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        # [G, n, n] @ [G, n, H] — batched aggregation on the MXU.
-        agg = (
-            jax.lax.dot_general(
-                adj_n, hw,
-                dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-            + self_n * hw
-        )
-        h = agg * bn_scale_ref[layer] + bn_shift_ref[layer]
-        h = jnp.maximum(h, 0.0)
+        w = w_in_ref[...] if layer == 0 else w_h_ref[layer - 1]
+        hw = dot(h, w)
+        agg = dot(adj_n, hw) + self_n * hw
+        h = jnp.maximum(agg * bn_scale_ref[layer] + bn_shift_ref[layer], 0.0)
 
-    # Masked mean-pool (same +1e-8 denominator as segment-mean).
-    pooled = jnp.sum(h * m, axis=1) / (jnp.sum(m, axis=1) + EPS)  # [G, H]
-    pooled_ref[step] = pooled
+    out_ref[...] = _mean_pool_head(
+        h, mask_ref[...], w_f1_ref[...], b_f1_ref[...], w_f2_ref[...],
+        b_f2_ref[...],
+    )
 
-    # MLP head over all graphs once every pool is in scratch.
-    @pl.when(step == num_steps - 1)
-    def _():
-        B = num_steps * G
-        flat = pooled_ref[:].reshape(B, pooled.shape[-1])
-        hidden = jnp.maximum(
-            jnp.dot(flat, w_f1_ref[:], preferred_element_type=jnp.float32)
-            + b_f1_ref[0],
-            0.0,
-        )
-        out_ref[:] = (
-            jnp.dot(hidden, w_f2_ref[:], preferred_element_type=jnp.float32)
-            + b_f2_ref[0]
-        )
+
+def _fused_sage_kernel(
+    x_ref,          # [n, F]
+    adj_ref,        # [n, n]
+    mask_ref,       # [n]
+    w_self_in_ref,  # [F, H]
+    w_agg_in_ref,   # [F, H]
+    w_self_h_ref,   # [max(L-1, 1), H, H]
+    w_agg_h_ref,    # [max(L-1, 1), H, H]
+    b_ref,          # [L, H]   conv bias (inside the ReLU)
+    bn_scale_ref,   # [L, H]   eval-BN affine scale (applied after ReLU)
+    bn_shift_ref,   # [L, H]
+    w_f1_ref,       # [H, H2]
+    b_f1_ref,       # [H2]
+    w_f2_ref,       # [H2, C]
+    b_f2_ref,       # [C]
+    out_ref,        # [C]
+    *,
+    num_layers: int,
+    precision,
+):
+    """Whole-model GraphSAGE inference for one graph.
+
+    Per layer: weighted-mean aggregate → split-matmul concat projection
+    → ReLU, then the folded eval-BatchNorm affine (SAGE's encode has no
+    post-BN ReLU).  The concat ``[h, agg] @ W`` is computed as
+    ``h @ W_self + agg @ W_agg``.
+    """
+    dot = partial(jnp.dot, precision=precision,
+                  preferred_element_type=jnp.float32)
+    adj = adj_ref[...]
+    w_sum = jnp.sum(adj, axis=1)[:, None] + EPS
+
+    h = x_ref[...]
+    for layer in range(num_layers):
+        w_self = w_self_in_ref[...] if layer == 0 else w_self_h_ref[layer - 1]
+        w_agg = w_agg_in_ref[...] if layer == 0 else w_agg_h_ref[layer - 1]
+        agg = dot(adj, h) / w_sum
+        z = dot(h, w_self) + dot(agg, w_agg) + b_ref[layer]
+        h = jnp.maximum(z, 0.0) * bn_scale_ref[layer] + bn_shift_ref[layer]
+
+    out_ref[...] = _mean_pool_head(
+        h, mask_ref[...], w_f1_ref[...], b_f1_ref[...], w_f2_ref[...],
+        b_f2_ref[...],
+    )
 
 
 def fold_bn_affine(
@@ -152,26 +191,146 @@ def fold_bn_affine(
     return jnp.stack(scales), jnp.stack(shifts)
 
 
-def _choose_graphs_per_block(B: int, n: int, F: int, H: int) -> int:
-    """Largest divisor of ``B`` whose working set fits the VMEM budget.
+def _stack_hidden(kernels, num_layers: int, Hp: int) -> jnp.ndarray:
+    """``[max(L-1, 1), Hp, Hp]`` stack of the post-input conv kernels
+    (one zero slab when ``L == 1``: a zero-size operand has no block)."""
+    if num_layers == 1:
+        return jnp.zeros((1, Hp, Hp), jnp.float32)
+    return jnp.stack([_pad_to(k, (Hp, Hp)) for k in kernels])
 
-    Counts the double-buffered input slabs (adj, x, mask) plus the
-    in-kernel intermediates: the normalized-adjacency copy (``n×n``) and
-    the activation/aggregate buffers at hidden width (~3·``n×H``).
-    """
-    bytes_per_graph = 4 * (
-        2 * (n * n + n * max(F, 8) + n)  # double-buffered input slabs
-        + n * n                          # adj_n
-        + 3 * n * max(H, F)              # h / hw / agg
+
+@pytree_dataclass
+class FusedWeights:
+    """A model's kernel operands: BatchNorm folded, kernels stacked and
+    everything zero-padded to the kernels' shapes.  Prepared once per
+    set of parameters (:func:`pack_fused_weights`) and reused for every
+    batch served with them."""
+
+    arrays: tuple
+    family: str = static_field()  # "gcn" | "sage"
+    num_layers: int = static_field()
+    num_classes: int = static_field()
+
+
+def _head_weights(params: dict, H_p: int) -> list:
+    fc1, fc2 = params["head"]["fc1"], params["head"]["fc2"]
+    H2, C = fc2["kernel"].shape
+    H2_p, C_p = _pow2(H2), _pow2(C)
+    return [
+        _pad_to(fc1["kernel"], (H_p, H2_p)),
+        _pad_to(fc1["bias"], (H2_p,)),
+        _pad_to(fc2["kernel"], (H2_p, C_p)),
+        _pad_to(fc2["bias"], (C_p,)),
+    ]
+
+
+def _check_uniform(params: dict, in_mult: int) -> None:
+    if not _uniform_hidden_width(params, in_mult):
+        raise ValueError(
+            "fused kernel requires uniform hidden width across layers"
+        )
+
+
+@partial(jax.jit, static_argnames=("num_layers",))
+def pack_gcn_weights(params: dict, state: dict, *, num_layers: int
+                     ) -> FusedWeights:
+    """:class:`FusedWeights` of a :class:`GCNConnectome`."""
+    _check_uniform(params, 1)
+    F, H = params["convs"][0]["kernel"].shape
+    H_p = _pow2(H)
+    bn_scale, bn_shift = fold_bn_affine(params, state, num_layers)
+    arrays = (
+        _pad_to(params["convs"][0]["kernel"], (_pow2(F), H_p)),
+        _stack_hidden([params["convs"][i]["kernel"]
+                       for i in range(1, num_layers)], num_layers, H_p),
+        _pad_to(bn_scale, (num_layers, H_p)),
+        _pad_to(bn_shift, (num_layers, H_p)),
+        *_head_weights(params, H_p),
     )
-    max_g = max(int(_VMEM_BLOCK_BUDGET // bytes_per_graph), 1)
-    g = min(B, max_g)
-    while B % g:
-        g -= 1
-    return g
+    C = params["head"]["fc2"]["kernel"].shape[1]
+    return FusedWeights(arrays, "gcn", num_layers, C)
 
 
-@partial(jax.jit, static_argnames=("num_layers", "interpret", "group"))
+@partial(jax.jit, static_argnames=("num_layers",))
+def pack_sage_weights(params: dict, state: dict, *, num_layers: int
+                      ) -> FusedWeights:
+    """:class:`FusedWeights` of a :class:`GraphSAGEConnectome`: the
+    concat kernels ``[h, agg] @ W`` split into self and neighbour
+    halves."""
+    _check_uniform(params, 2)
+    F2, H = params["convs"][0]["kernel"].shape
+    F = F2 // 2
+    H_p, F_p = _pow2(H), _pow2(F)
+    # eval-BN affine (applied AFTER the in-layer ReLU; conv bias cannot be
+    # folded through the nonlinearity, so it stays separate)
+    bn_scale, bn_shift = fold_bn_affine(
+        params, state, num_layers, include_conv_bias=False
+    )
+    convs = [params["convs"][i]["kernel"] for i in range(num_layers)]
+    biases = jnp.stack([params["convs"][i]["bias"] for i in range(num_layers)])
+    arrays = (
+        _pad_to(convs[0][:F], (F_p, H_p)),
+        _pad_to(convs[0][F:], (F_p, H_p)),
+        _stack_hidden([k[:H] for k in convs[1:]], num_layers, H_p),
+        _stack_hidden([k[H:] for k in convs[1:]], num_layers, H_p),
+        _pad_to(biases, (num_layers, H_p)),
+        _pad_to(bn_scale, (num_layers, H_p)),
+        _pad_to(bn_shift, (num_layers, H_p)),
+        *_head_weights(params, H_p),
+    )
+    C = params["head"]["fc2"]["kernel"].shape[1]
+    return FusedWeights(arrays, "sage", num_layers, C)
+
+
+_KERNELS = {"gcn": _fused_gcn_kernel, "sage": _fused_sage_kernel}
+
+
+@partial(jax.jit, static_argnames=("interpret",))
+def fused_apply(
+    weights: FusedWeights,
+    x: jnp.ndarray,
+    adj: jnp.ndarray,
+    node_mask: jnp.ndarray,
+    *,
+    interpret: bool = False,
+) -> jnp.ndarray:
+    """Eval-mode logits ``[B, C]`` of a dense batch through the fused
+    kernel, one program per graph.  Pads the batch to the kernel's
+    power-of-two shapes; ``weights`` come padded already."""
+    B, n, _ = x.shape
+    n_p, F_p = _pow2(n), weights.arrays[0].shape[0]
+    C_p = weights.arrays[-1].shape[0]
+    graph_args = (
+        _pad_to(x.astype(jnp.float32), (B, n_p, F_p)),
+        _pad_to(adj.astype(jnp.float32), (B, n_p, n_p)),
+        _pad_to(node_mask.astype(jnp.float32), (B, n_p)),
+    )
+
+    def per_graph(shape):
+        return pl.BlockSpec((None,) + shape, lambda b: (b,) + (0,) * len(shape))
+
+    def whole(a):
+        return pl.BlockSpec(a.shape, lambda b: (0,) * a.ndim)
+
+    kernel = partial(_KERNELS[weights.family], num_layers=weights.num_layers,
+                     precision=_dot_precision())
+    out = pl.pallas_call(
+        kernel,
+        grid=(B,),
+        out_shape=jax.ShapeDtypeStruct((B, C_p), jnp.float32),
+        in_specs=[per_graph((n_p, F_p)), per_graph((n_p, n_p)),
+                  per_graph((n_p,))] + [whole(w) for w in weights.arrays],
+        out_specs=per_graph((C_p,)),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=4 if n_p <= 64 else 8, num_stages=1
+        ),
+        interpret=interpret,
+        name=f"fused_{weights.family}_kernel",
+    )(*graph_args, *weights.arrays)
+    return out[:, : weights.num_classes]
+
+
 def fused_gcn_forward(
     params: dict,
     state: dict,
@@ -181,254 +340,16 @@ def fused_gcn_forward(
     *,
     num_layers: int = 3,
     interpret: bool = False,
-    group: int | None = None,
 ) -> jnp.ndarray:
     """Run the fused GCN inference kernel.  Returns logits ``[B, C]``.
 
     ``params``/``state`` are the standard :class:`GCNConnectome` pytrees;
     ``x``/``adj``/``node_mask`` come from a :class:`DenseConnectomeBatch`.
     """
-    B, n, F = x.shape
-    H = params["convs"][-1]["kernel"].shape[1]
-    C = params["head"]["fc2"]["kernel"].shape[1]
-
-    for i in range(1, num_layers):
-        if params["convs"][i]["kernel"].shape != (H, H):
-            raise ValueError(
-                "fused kernel requires uniform hidden width across layers"
-            )
-
-    bn_scale, bn_shift = fold_bn_affine(params, state, num_layers)
-    w_in = params["convs"][0]["kernel"]
-    # zero-size arrays break pallas block handling → keep ≥1 (unused) slab
-    w_h = (
-        jnp.stack([params["convs"][i]["kernel"] for i in range(1, num_layers)])
-        if num_layers > 1
-        else jnp.zeros((1, H, H), jnp.float32)
-    )
-
-    G = group if group is not None else _choose_graphs_per_block(B, n, F, H)
-    kernel = partial(
-        _fused_gcn_kernel, num_layers=num_layers, graphs_per_block=G
-    )
-    per_group = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, lambda b: (b,) + (0,) * (len(shape) - 1), memory_space=pltpu.VMEM
-    )
-    whole = pl.BlockSpec(memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=(B // G,),
-        out_shape=jax.ShapeDtypeStruct((B, C), jnp.float32),
-        in_specs=[
-            per_group((G, n, F)),       # x
-            per_group((G, n, n)),       # adj
-            per_group((G, n, 1)),       # mask
-            whole,                      # w_in
-            whole,                      # w_h
-            whole,                      # bn_scale
-            whole,                      # bn_shift
-            whole,                      # w_f1
-            whole,                      # b_f1
-            whole,                      # w_f2
-            whole,                      # b_f2
-        ],
-        out_specs=pl.BlockSpec((B, C), lambda b: (0, 0), memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((B // G, G, H), jnp.float32)],
-        interpret=interpret,
-    )(
-        x,
-        adj,
-        node_mask.astype(jnp.float32)[:, :, None],
-        w_in,
-        w_h,
-        bn_scale,
-        bn_shift,
-        params["head"]["fc1"]["kernel"],
-        params["head"]["fc1"]["bias"][None, :],
-        params["head"]["fc2"]["kernel"],
-        params["head"]["fc2"]["bias"][None, :],
-    )
+    weights = pack_gcn_weights(params, state, num_layers=num_layers)
+    return fused_apply(weights, x, adj, node_mask, interpret=interpret)
 
 
-def _uniform_hidden_width(model, params: dict) -> bool:
-    """Whether every post-input conv layer is ``H → H`` (the fused kernels'
-    weight-stacking precondition); ``2H → H`` for SAGE's concat kernels."""
-    H = params["convs"][-1]["kernel"].shape[1]
-    in_mult = params["convs"][-1]["kernel"].shape[0] // H if model.num_layers > 1 else 1
-    return all(
-        params["convs"][i]["kernel"].shape == (in_mult * H, H)
-        for i in range(1, model.num_layers)
-    )
-
-
-def forward_auto(
-    model, params: dict, state: dict, batch, *, interpret: bool = False
-) -> jnp.ndarray:
-    """Inference forward choosing the fastest verified-equivalent path,
-    dispatched on the model family (GCN → :func:`fused_gcn_forward`,
-    GraphSAGE → :func:`fused_sage_forward`).
-
-    Measured on v5e (device-side steady state): the fused kernels match
-    XLA's batched-matmul dense path for small graphs (n ≲ 128) while
-    collapsing ~30 dispatches into one (≈10× lower serving latency through
-    a remote runtime); for large graphs (n=360, h=256) XLA's pipelined
-    batched matmul wins.  This helper picks per batch shape and model; the
-    fused kernels require the TPU backend unless ``interpret`` forces the
-    Pallas interpreter (how CPU tests exercise this exact path).  Falls
-    back to ``model.apply`` for COO-layout batches, non-uniform hidden
-    widths, or model families without a fused kernel.
-    """
-    from connectome_gnn_jax.models import GCNConnectome, GraphSAGEConnectome
-
-    if isinstance(model, GCNConnectome):
-        fused_fn = fused_gcn_forward
-    elif isinstance(model, GraphSAGEConnectome):
-        fused_fn = fused_sage_forward
-    else:
-        fused_fn = None
-    if (
-        fused_fn is not None
-        and hasattr(batch, "adj")
-        and batch.node_features.shape[1] <= 128
-        and _uniform_hidden_width(model, params)
-        and (interpret or jax.default_backend() == "tpu")
-    ):
-        return _fused_with_vmem_retry(
-            fused_fn, params, state, batch, model.num_layers, interpret
-        )
-    logits, _ = model.apply(params, state, batch, train=False)
-    return logits
-
-
-#: (fn, B, n, F, H, L) -> group size proven to compile under the
-#: 16 MB scoped-VMEM limit on this backend
-_PROVEN_GROUPS: dict = {}
-
-
-def _fused_with_vmem_retry(fused_fn, params, state, batch, num_layers,
-                           interpret):
-    """Call a fused kernel, retrying with the next-smaller divisor group
-    when the compiler rejects the heuristic's pick for scoped VMEM.
-
-    The `_choose_graphs_per_block` estimate undercounts the compiler's
-    scoped accounting by ~23% at the swept shape (see
-    ``_VMEM_BLOCK_BUDGET``); for unswept (n, F, H) combinations the
-    chosen ``G`` may exceed the 16 MB limit — a hard compile error, not
-    a spill.  Each shape's first proven group is cached so the fallback
-    compiles are paid once.  (Under an outer trace — mesh serving —
-    the error surfaces at the caller's compile as before.)
-    """
-    B, n, F = batch.node_features.shape
-    H = params["convs"][-1]["kernel"].shape[1]
-    key = (fused_fn, B, n, F, H, num_layers)
-    g = _PROVEN_GROUPS.get(key)
-    if g is None:
-        g = _choose_graphs_per_block(B, n, F, H)
-    args = (params, state, batch.node_features, batch.adj,
-            batch.node_mask)
-    while True:
-        try:
-            out = fused_fn(*args, num_layers=num_layers,
-                           interpret=interpret, group=g)
-            _PROVEN_GROUPS[key] = g
-            return out
-        except Exception as e:
-            msg = str(e).lower()
-            if g <= 1 or ("vmem" not in msg and "resource" not in msg):
-                raise
-            g -= 1
-            while g > 1 and B % g:
-                g -= 1
-
-
-def gcn_forward_auto(
-    model, params: dict, state: dict, batch, *, interpret: bool = False
-) -> jnp.ndarray:
-    """Back-compat alias of :func:`forward_auto` (GCN-only call sites)."""
-    return forward_auto(model, params, state, batch, interpret=interpret)
-
-
-def _fused_sage_kernel(
-    x_ref,         # [G, n, F]
-    adj_ref,       # [G, n, n]
-    mask_ref,      # [G, n, 1]
-    w_self_in_ref, # [F, H]
-    w_agg_in_ref,  # [F, H]
-    w_self_h_ref,  # [L-1, H, H]
-    w_agg_h_ref,   # [L-1, H, H]
-    b_ref,         # [L, H]     conv bias (inside the ReLU)
-    bn_scale_ref,  # [L, H]     eval-BN affine scale (applied after ReLU)
-    bn_shift_ref,  # [L, H]
-    w_f1_ref,      # [H, H2]
-    b_f1_ref,      # [1, H2]
-    w_f2_ref,      # [H2, C]
-    b_f2_ref,      # [1, C]
-    out_ref,       # [B, C]
-    pooled_ref,    # scratch [S, G, H]
-    *,
-    num_layers: int,
-    graphs_per_block: int,
-):
-    """Whole-model GraphSAGE inference for one group of graphs.
-
-    Per layer (reference models.py:136-152, 256-262): weighted-mean
-    aggregate → split-matmul concat projection → ReLU, then the folded
-    eval-BatchNorm affine (SAGE's encode has no post-BN ReLU).  The concat
-    ``[h, agg] @ W`` is computed as ``h @ W_self + agg @ W_agg`` to stay
-    concat-free in VMEM.
-    """
-    step = pl.program_id(0)
-    num_steps = pl.num_programs(0)
-    G = graphs_per_block
-
-    adj = adj_ref[:]                          # [G, n, n]
-    m = mask_ref[:]                           # [G, n, 1]
-    w_sum = jnp.sum(adj, axis=2, keepdims=True) + EPS  # [G, n, 1]
-
-    h = x_ref[:]
-    for layer in range(num_layers):
-        w_self = w_self_in_ref[:] if layer == 0 else w_self_h_ref[layer - 1]
-        w_agg = w_agg_in_ref[:] if layer == 0 else w_agg_h_ref[layer - 1]
-        msum = jax.lax.dot_general(
-            adj, h,
-            dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-        agg = msum / w_sum
-        z = (
-            jax.lax.dot_general(
-                h, w_self,
-                dimension_numbers=(((2,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            + jax.lax.dot_general(
-                agg, w_agg,
-                dimension_numbers=(((2,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            + b_ref[layer]
-        )
-        h = jnp.maximum(z, 0.0) * bn_scale_ref[layer] + bn_shift_ref[layer]
-
-    pooled = jnp.sum(h * m, axis=1) / (jnp.sum(m, axis=1) + EPS)
-    pooled_ref[step] = pooled
-
-    @pl.when(step == num_steps - 1)
-    def _():
-        B = num_steps * G
-        flat = pooled_ref[:].reshape(B, pooled.shape[-1])
-        hidden = jnp.maximum(
-            jnp.dot(flat, w_f1_ref[:], preferred_element_type=jnp.float32)
-            + b_f1_ref[0],
-            0.0,
-        )
-        out_ref[:] = (
-            jnp.dot(hidden, w_f2_ref[:], preferred_element_type=jnp.float32)
-            + b_f2_ref[0]
-        )
-
-
-@partial(jax.jit, static_argnames=("num_layers", "interpret", "group"))
 def fused_sage_forward(
     params: dict,
     state: dict,
@@ -438,78 +359,95 @@ def fused_sage_forward(
     *,
     num_layers: int = 3,
     interpret: bool = False,
-    group: int | None = None,
 ) -> jnp.ndarray:
     """Fused GraphSAGE inference kernel.  Returns logits ``[B, C]``.
 
     ``params``/``state`` are :class:`GraphSAGEConnectome` pytrees;
     ``x``/``adj``/``node_mask`` come from a :class:`DenseConnectomeBatch`.
     """
-    B, n, F = x.shape
-    H = params["convs"][-1]["kernel"].shape[1]
-    C = params["head"]["fc2"]["kernel"].shape[1]
-    for i in range(1, num_layers):
-        if params["convs"][i]["kernel"].shape != (2 * H, H):
-            raise ValueError(
-                "fused kernel requires uniform hidden width across layers"
-            )
+    weights = pack_sage_weights(params, state, num_layers=num_layers)
+    return fused_apply(weights, x, adj, node_mask, interpret=interpret)
 
-    # eval-BN affine (applied AFTER the in-layer ReLU; conv bias cannot be
-    # folded through the nonlinearity, so it stays separate)
-    bn_scale, bn_shift = fold_bn_affine(
-        params, state, num_layers, include_conv_bias=False
+
+def _uniform_hidden_width(params: dict, in_mult: int) -> bool:
+    """Whether every post-input conv kernel is ``in_mult·H → H`` (the
+    fused kernels' weight-stacking precondition; ``in_mult`` is 2 for
+    SAGE's concat kernels)."""
+    H = params["convs"][0]["kernel"].shape[1]
+    return all(
+        conv["kernel"].shape == (in_mult * H, H) for conv in params["convs"][1:]
     )
 
-    k0 = params["convs"][0]["kernel"]  # [2F, H]
-    w_self_in, w_agg_in = k0[:F], k0[F:]
-    if num_layers > 1:
-        w_self_h = jnp.stack(
-            [params["convs"][i]["kernel"][:H] for i in range(1, num_layers)]
-        )
-        w_agg_h = jnp.stack(
-            [params["convs"][i]["kernel"][H:] for i in range(1, num_layers)]
-        )
+
+def _kernel_family(model, params: dict):
+    """``"gcn"``/``"sage"`` for float32 models of uniform hidden width
+    whose family has a fused kernel, else ``None``."""
+    from connectome_gnn_jax.models import GCNConnectome, GraphSAGEConnectome
+
+    if isinstance(model, GCNConnectome):
+        family, in_mult = "gcn", 1
+    elif isinstance(model, GraphSAGEConnectome):
+        family, in_mult = "sage", 2
     else:
-        w_self_h = jnp.zeros((1, H, H), jnp.float32)
-        w_agg_h = jnp.zeros((1, H, H), jnp.float32)
-    biases = jnp.stack(
-        [params["convs"][i]["bias"] for i in range(num_layers)]
-    )
+        return None
+    if (
+        model.compute_dtype != jnp.float32
+        or not _uniform_hidden_width(params, in_mult)
+    ):
+        return None
+    return family
 
-    G = group if group is not None else _choose_graphs_per_block(B, n, F, H)
-    kernel = partial(
-        _fused_sage_kernel, num_layers=num_layers, graphs_per_block=G
-    )
-    per_group = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, lambda b: (b,) + (0,) * (len(shape) - 1), memory_space=pltpu.VMEM
-    )
-    whole = pl.BlockSpec(memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=(B // G,),
-        out_shape=jax.ShapeDtypeStruct((B, C), jnp.float32),
-        in_specs=[
-            per_group((G, n, F)),
-            per_group((G, n, n)),
-            per_group((G, n, 1)),
-        ]
-        + [whole] * 11,
-        out_specs=pl.BlockSpec((B, C), lambda b: (0, 0), memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((B // G, G, H), jnp.float32)],
+
+def fused_kernel_for(model, params: dict, batch, platform: str):
+    """The fused kernel that serves ``batch`` on ``platform``, or ``None``
+    where the plain XLA forward does.
+
+    The kernels run on ``"gpu"`` for float32 GCN and GraphSAGE models of
+    uniform hidden width over dense batches of at most
+    :data:`MAX_FUSED_NODES` nodes per graph.
+    """
+    family = _kernel_family(model, params)
+    if (
+        family is None
+        or platform != "gpu"
+        or not hasattr(batch, "adj")
+        or batch.node_features.shape[1] > MAX_FUSED_NODES
+    ):
+        return None
+    return {"gcn": fused_gcn_forward, "sage": fused_sage_forward}[family]
+
+
+def pack_fused_weights(model, params: dict, state: dict):
+    """:class:`FusedWeights` for ``model``, or ``None`` when its family,
+    dtype or widths have no fused kernel."""
+    family = _kernel_family(model, params)
+    if family is None:
+        return None
+    pack = pack_gcn_weights if family == "gcn" else pack_sage_weights
+    return pack(params, state, num_layers=model.num_layers)
+
+
+def forward_auto(
+    model, params: dict, state: dict, batch, *, interpret: bool = False,
+    weights: FusedWeights | None = None,
+) -> jnp.ndarray:
+    """Eval-mode logits through the fused kernel where
+    :func:`fused_kernel_for` picks one, else through ``model.apply``.
+
+    On a GPU backend a chosen kernel is compiled and run; a compile error
+    raises.  Elsewhere the plain path runs, unless ``interpret`` asks for
+    the chosen kernel under the Pallas interpreter (how CPU tests
+    exercise it).  A server that runs many batches with the same
+    parameters passes ``weights`` from :func:`pack_fused_weights`, so the
+    per-batch work is the kernel and the batch padding alone.
+    """
+    platform = "gpu" if interpret else jax.default_backend()
+    if fused_kernel_for(model, params, batch, platform) is None:
+        logits, _ = model.apply(params, state, batch, train=False)
+        return logits
+    if weights is None:
+        weights = pack_fused_weights(model, params, state)
+    return fused_apply(
+        weights, batch.node_features, batch.adj, batch.node_mask,
         interpret=interpret,
-    )(
-        x,
-        adj,
-        node_mask.astype(jnp.float32)[:, :, None],
-        w_self_in,
-        w_agg_in,
-        w_self_h,
-        w_agg_h,
-        biases,
-        bn_scale,
-        bn_shift,
-        params["head"]["fc1"]["kernel"],
-        params["head"]["fc1"]["bias"][None, :],
-        params["head"]["fc2"]["kernel"],
-        params["head"]["fc2"]["bias"][None, :],
     )

@@ -7,7 +7,7 @@ layer (reference ``connectome_gnn/models.py:94-108``):
     d_i = Σ_j Â_ij                   (weighted degree over senders)
     ŵ_ij = d_i^{-1/2} · Â_ij · d_j^{-1/2}
 
-TPU-native formulation: the reference materializes the self-loop-augmented
+Static-shape formulation: the reference materializes the self-loop-augmented
 edge list by concatenation (models.py:94-100) and scatters over it.  Here the
 self-loop block is folded out algebraically instead:
 

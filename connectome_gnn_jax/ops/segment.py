@@ -1,6 +1,6 @@
 """Segment reduction primitives.
 
-These are the message-passing kernels of the framework — the TPU-native
+These are the message-passing kernels of the framework — the
 replacement for the reference's ``scatter_add_``-based helpers
 (reference ``connectome_gnn/models.py:40-59``).  They are expressed with
 ``jax.ops.segment_sum`` so XLA lowers them to sorted-segment reductions;

@@ -1,13 +1,13 @@
 """Halo-exchange parallelism for banded giant graphs.
 
-The ICI-efficient multi-chip design for spatially-local giant connectomes
+The interconnect-efficient multi-device design for spatially-local giant connectomes
 (BASELINE config 5): shard the block band by **contiguous row blocks**
 across devices.  Because every edge lives within ``W`` blocks of the
 diagonal, a device needs only the ``W`` boundary blocks of each neighbor —
 so the per-layer exchange is two neighbor ``ppermute``s of ``W·block·H``
 activations instead of an ``all_gather`` of the full feature matrix
 (volume ``2·W·block·H`` vs ``(D-1)·P_local·H``; for a ±1024-node band on
-8 shards of a 1M-node graph that is ~60× less ICI traffic).  XLA overlaps
+8 shards of a 1M-node graph that is ~60× less exchange traffic).  XLA overlaps
 the ppermute with the local batched matmuls.
 
 Everything else matches the single-device banded path bit-for-bit up to

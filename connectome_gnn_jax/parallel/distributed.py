@@ -1,11 +1,12 @@
 """Multi-process (multi-host) execution layer.
 
 Scales training from one process to ``N`` processes (the N-host half of
-the north star: 1 chip → 1 host → N hosts on a v5e slice).  The design is
+the north star: 1 device → 1 host → N hosts).  The design is
 JAX-native: after :func:`initialize_distributed`, ``jax.devices()`` spans
 every process, one process-spanning :class:`~jax.sharding.Mesh` is built
 (:func:`connectome_gnn_jax.parallel.mesh.create_mesh` needs no changes —
-collectives ride ICI within a host and DCN across hosts, inserted by XLA),
+collectives ride the host's device interconnect (NVLink on a multi-GPU
+host) and the network across hosts, inserted by XLA),
 and the existing shard_map train steps run unchanged.  What this module
 adds is the *data* side:
 
@@ -20,7 +21,7 @@ The reference has no distributed layer of any kind (SURVEY §0/§5: no
 torch.distributed, no collectives, single process).  On CPU the
 cross-process collective transport is gloo — which is how the
 multiprocess dryrun harness (``benchmarks/multiprocess.py``) validates
-this exact program graph without a TPU pod: same shard_map programs, same
+this exact program graph without a GPU cluster: same shard_map programs, same
 collectives, real process boundaries.
 """
 
@@ -41,9 +42,10 @@ def initialize_distributed(
 ) -> None:
     """Join (or start) a multi-process JAX job.
 
-    Call once per process, BEFORE any other jax use.  On TPU pods the
-    arguments are auto-detected from the environment and may be omitted;
-    on CPU (the test rig) all three are required and the gloo collective
+    Call once per process, BEFORE any other jax use.  Where no cluster
+    environment describes the job (a bare GPU host, the CPU test rig),
+    all three arguments are required — ``coordinator_address`` as
+    ``localhost:<port>`` on one host; on CPU the gloo collective
     transport is selected.  No-op when ``num_processes == 1`` and no
     coordinator is given (single-process runs need no cluster).
     """

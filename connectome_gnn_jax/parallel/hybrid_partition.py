@@ -6,7 +6,7 @@ halo blocks between neighbors, but its pure-band form cannot carry the
 shortcuts.  This module shards the :class:`~connectome_gnn_jax.ops.banded.
 HybridMatrix` form: the band bulk keeps the cheap neighbor ``ppermute``
 halo exchange, and the sparse remainder's cross-shard senders are served
-by a **static all-to-all row exchange** over ICI:
+by a **static all-to-all row exchange** between devices:
 
 * host side (:func:`partition_hybrid`): every remainder edge is owned by
   its receiver's shard; for each ordered shard pair ``(i → j)`` the
@@ -22,7 +22,7 @@ by a **static all-to-all row exchange** over ICI:
 
 Traffic per layer is ``2·D·U·H`` instead of the full-feature-matrix
 all-gather — for sparse shortcut sets ``U ≪ P_local``, this rides the
-same ICI budget as the halo exchange.  Everything is differentiable
+same interconnect budget as the halo exchange.  Everything is differentiable
 under ``shard_map``'s vma autodiff; gradient-oracle tests in
 ``tests/test_hybrid_partition.py`` prove exactness against the
 single-device hybrid models.

@@ -23,9 +23,9 @@ def create_mesh(
 ) -> Mesh:
     """Build a named device mesh.
 
-    Defaults to a 1-D ``("data",)`` mesh over all visible devices.  On TPU,
-    ``jax.make_mesh`` picks a device order that keeps neighboring mesh
-    coordinates physically adjacent (collectives ride ICI).
+    Defaults to a 1-D ``("data",)`` mesh over all visible devices.  The
+    GPUs of one host reach each other all to all over NVLink, so the mesh
+    follows the algorithm alone.
     """
     if devices is None:
         devices = jax.devices()

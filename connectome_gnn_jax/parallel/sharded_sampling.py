@@ -120,7 +120,7 @@ class CompactionConfig:
         ``alpha`` / ``rounds``).  The two stages have opposite
         economics: the feature stage carries nearly all the payload
         (``C_f·(8 + 4F)`` vs the hop stages' ``C·(8 + 8f)`` at the
-        ICI-projection shape: 105 of 108.5 MB at the α=2/R=2 default)
+        exchange-projection shape: 105 of 108.5 MB at the α=2/R=2 default)
         but dedups, so tight capacities stay exact, while the DRAW
         stages are cheap but can never dedup and absorb the per-slot
         skew.  Splitting them — generous draw α, tight feature α —

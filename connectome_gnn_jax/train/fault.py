@@ -1,7 +1,7 @@
 """In-run fault detection and preemption handling.
 
 The reference suite has no failure-recovery story (SURVEY §5: the row the
-round-1 review left partial).  On TPU jobs the failure modes that matter
+round-1 review left partial).  On accelerator jobs the failure modes that matter
 are:
 
 * **numeric blowup** — a bad batch / LR spike produces a non-finite loss
@@ -12,7 +12,7 @@ are:
   state and optimizer state keep their old values, and the step reports
   ``ok=0`` so the trainer can count skipped steps — exactly one host
   sync per epoch, like the loss accumulation.
-* **preemption** — cloud TPU slices get SIGTERM with a grace window.
+* **preemption** — cloud and cluster jobs get SIGTERM with a grace window.
   :class:`PreemptionGuard` turns the signal into a flag the training
   loop polls at epoch boundaries; combined with the atomic fit
   checkpoint (:meth:`Trainer.fit(checkpoint_dir=...)`) the job persists

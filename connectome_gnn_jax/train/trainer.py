@@ -5,7 +5,7 @@ Mirrors the reference ``Trainer`` contract (reference
 train/eval with loss accumulation weighted by real graph count, early
 stopping on validation loss with patience, best-state snapshot and restore.
 
-TPU-native structure: the per-batch work is two jitted pure functions
+Structure: the per-batch work is two jitted pure functions
 (``train_step``: value_and_grad + optax update + BatchNorm state advance;
 ``eval_step``: logits → masked loss/accuracy sums) compiled once thanks to
 the loader's fixed batch shapes.  The epoch driver stays on host and only
@@ -624,10 +624,12 @@ class Trainer:
         With ``prefer_fused`` (default) dense-layout GCN **and GraphSAGE**
         batches go through
         :func:`~connectome_gnn_jax.ops.fused_pallas.forward_auto`
-        — the whole forward in one ``pallas_call`` where that wins
-        (~10× lower dispatch latency through a remote runtime),
-        verified equivalent to the XLA path.  When ``prefer_fused`` is
-        requested but a batch's layout cannot fuse (COO layout has no
+        — on a GPU, the whole forward in one Triton-route
+        ``pallas_call`` for graphs of up to 128 nodes, verified
+        equivalent to the XLA path; elsewhere the XLA path.  The
+        kernel's operands are packed once per call.  When
+        ``prefer_fused`` is requested but a batch's layout cannot fuse
+        (COO layout has no
         dense adjacency), a ``UserWarning`` is emitted once and the XLA
         path is used.  In mesh mode, stacked batches run sharded over the
         mesh via ``shard_map`` with the same per-shard auto dispatch
@@ -636,16 +638,21 @@ class Trainer:
         """
         import numpy as np
 
+        from connectome_gnn_jax.ops.fused_pallas import (
+            forward_auto,
+            pack_fused_weights,
+        )
+
         cache = self.__dict__.setdefault("_predict_cache", {})
         key = (prefer_fused, interpret)
         if key not in cache:
             model = self.model
-            from connectome_gnn_jax.ops.fused_pallas import forward_auto
 
-            def _forward(params, state, batch):
+            def _forward(params, state, weights, batch):
                 if prefer_fused:
                     return forward_auto(
-                        model, params, state, batch, interpret=interpret
+                        model, params, state, batch, interpret=interpret,
+                        weights=weights,
                     )
                 logits, _ = model.apply(params, state, batch, train=False)
                 return logits
@@ -663,15 +670,15 @@ class Trainer:
                 @partial(
                     jax.shard_map,
                     mesh=self.mesh,
-                    in_specs=(P(), P(), P(self.axis_name)),
+                    in_specs=(P(), P(), P(), P(self.axis_name)),
                     out_specs=P(self.axis_name),
                     # pallas_call outputs carry no vma annotation; this is
                     # a forward-only map with no collectives to validate
                     check_vma=False,
                 )
-                def predict_step_stacked(params, state, stacked):
+                def predict_step_stacked(params, state, weights, stacked):
                     batch = jax.tree_util.tree_map(lambda a: a[0], stacked)
-                    return _forward(params, state, batch)[None]
+                    return _forward(params, state, weights, batch)[None]
 
             else:
                 # stacked batches without a mesh: vmap over the device axis
@@ -679,12 +686,17 @@ class Trainer:
                 # the fused kernels' scratch layout is not written for)
                 predict_step_stacked = jax.jit(
                     jax.vmap(
-                        lambda p, s, b: model.apply(p, s, b, train=False)[0],
-                        in_axes=(None, None, 0),
+                        lambda p, s, w, b: model.apply(p, s, b, train=False)[0],
+                        in_axes=(None, None, None, 0),
                     )
                 )
             cache[key] = (predict_step, predict_step_stacked)
 
+        # kernel operands are prepared once per call, not per batch
+        weights = (
+            pack_fused_weights(self.model, self.params, self.state)
+            if prefer_fused else None
+        )
         chunks = []
         for batch in self._iterate(loader):
             if prefer_fused and not hasattr(batch, "adj"):
@@ -701,7 +713,7 @@ class Trainer:
                     self._warned_unfusable = True
             stacked = batch.label_mask.ndim == 2
             step = cache[key][1] if stacked else cache[key][0]
-            logits = np.asarray(step(self.params, self.state, batch))
+            logits = np.asarray(step(self.params, self.state, weights, batch))
             # real-graph mask, NOT label_mask: unlabeled graphs are the
             # core serving case and must still get predictions
             mask = np.asarray(batch.graph_mask)

@@ -1,6 +1,6 @@
 """Profiling and timing utilities.
 
-The reference has no tracing/profiling at all (SURVEY §5); the TPU-native
+The reference has no tracing/profiling at all (SURVEY §5); the
 equivalents here are thin wrappers over ``jax.profiler`` (device traces
 viewable in XProf/TensorBoard) plus a dependency-free step timer for
 throughput accounting in training loops and benchmarks.

@@ -6,7 +6,7 @@ End-to-end example mirroring the reference suite's demo narrative
 GCN and GraphSAGE classifiers, compare accuracy on a held-out test set.
 
 Usage:
-    python examples/demo.py            # default backend (TPU if available)
+    python examples/demo.py            # default backend (GPU if available)
     python examples/demo.py --cpu      # force CPU
 
 Expected test accuracy: ~55-70% per model (brain-behaviour correlations are
@@ -82,6 +82,9 @@ def train_and_test(name, model_cls, loaders, in_channels):
 
 
 def main() -> None:
+    from connectome_gnn_jax.utils import enable_compile_cache
+
+    enable_compile_cache()
     print(f"JAX backend: {jax.default_backend()}  devices: {jax.devices()}")
 
     print_section("1. Generating synthetic connectome dataset")

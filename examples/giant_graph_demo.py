@@ -2,12 +2,12 @@
 """Giant-graph node classification demo.
 
 The voxel-level regime (BASELINE config 5): one large spatially-embedded
-connectome, trained for node-level prediction with the banded MXU path:
+connectome, trained for node-level prediction with the banded matmul path:
 
   1. synthesize a spatially-local giant graph (voxel-like locality),
   2. scramble it and recover the band with Reverse-Cuthill-McKee,
   3. convert to banded block-dense form,
-  4. train a BandedNodeGCN (single chip), and
+  4. train a BandedNodeGCN (single device), and
   5. run the same parameters through the halo-exchange sharded model on a
      device mesh, confirming identical predictions.
 
@@ -48,7 +48,9 @@ def main() -> None:
     )
     from connectome_gnn_jax.models import BandedNodeGCN
     from connectome_gnn_jax.ops import to_banded
+    from connectome_gnn_jax.utils import enable_compile_cache
 
+    enable_compile_cache()
     print(f"JAX backend: {jax.default_backend()}")
 
     # ------------------------------------------------------------------
@@ -331,7 +333,7 @@ def main() -> None:
         #     per-stage capacities exact on the probed steps at
         #     near-minimal payload; in_degree_cap clamps the draw
         #     buffers a power-law hub would otherwise price for every
-        #     step (measured on chip in DEGREE_CAP_r05.json).
+        #     step (benchmarks/degree_cap.py measures it).
         # --------------------------------------------------------------
         from connectome_gnn_jax.parallel import (
             plan_compaction,
@@ -372,7 +374,7 @@ def main() -> None:
             f"in_degree_cap=8: max_in_degree "
             f"{gs.csr.max_in_degree} -> {capped.csr.max_in_degree} "
             f"(every [*, max_deg] draw buffer shrinks with it; the "
-            f"hub cliff is measured in DEGREE_CAP_r05.json)"
+            f"hub cliff is measured by benchmarks/degree_cap.py)"
         )
     else:
         print("(single device — skipping the graph-sharded sampling "

@@ -1,9 +1,10 @@
-"""Int8-quantized banded SpMM: quantizer bounds + kernel equivalence.
+"""Int8-quantized banded SpMM: quantizer bounds + product equivalence.
 
-The Pallas kernel is checked against an exact jnp *emulation* of its
-arithmetic (bf16 operands, per-tile f32-accumulated dots, f32 scale) —
-tight tolerance — and against the f32 path within the analytic
-quantization bound (per-entry error ≤ scale/2, bf16 cast ≤ 2⁻⁸·|x|).
+The quantized products are checked against an independent numpy
+*emulation* of their arithmetic (the dequantized band as a dense matrix
+times bf16-rounded activations, in float64) — tight tolerance — and
+against the f32 path within the analytic quantization bound (per-entry
+error ≤ scale/2, bf16 cast ≤ 2⁻⁸·|x|).
 """
 
 import jax
@@ -32,26 +33,32 @@ def _banded(seed=0, n=640, block=64, degree=6, band=40, feat=16):
     return a, jnp.asarray(g.node_features)
 
 
+#: (num_nodes, block) band geometries: block-multiple, ragged tail, and a
+#: small block with a wider band in blocks.
+GEOMETRIES = [(640, 64), (600, 64), (320, 32)]
+
+
+def _dense_dequantized(q):
+    """The dequantized band as a dense ``[num_nodes, num_nodes]`` float64
+    matrix (tiles outside the node range dropped)."""
+    block, nb, W, n = q.block, q.num_blocks, q.bandwidth, q.num_nodes
+    band = np.asarray(q.band_q, np.float64) * np.asarray(
+        q.scales, np.float64
+    )[:, :, None, None]
+    full = np.zeros((nb * block, (nb + 2 * W) * block))
+    for rb in range(nb):
+        for d in range(2 * W + 1):
+            c0 = (rb + d) * block  # sender block rb + d - W, shifted by W
+            full[rb * block:(rb + 1) * block, c0:c0 + block] = band[rb, d]
+    return full[:n, W * block:W * block + n]
+
+
 def _emulate(q, x):
-    """Exact jnp model of the kernel's arithmetic (any R): per (rb, d)
-    tile, bf16 band × bf16 x block dotted with f32 accumulation, scaled
-    in f32, summed over d in f32."""
-    block, nb, W = q.block, q.num_blocks, q.bandwidth
-    D = 2 * W + 1
-    F = x.shape[1]
-    x_pad = jnp.zeros(((nb + 2 * W) * block, F), jnp.bfloat16)
-    x_pad = jax.lax.dynamic_update_slice(
-        x_pad, x[: q.num_nodes].astype(jnp.bfloat16), (W * block, 0)
-    ).reshape(nb + 2 * W, block, F)
-    out = jnp.zeros((nb, block, F), jnp.float32)
-    for d in range(D):
-        tiles = q.band_q[:, d].astype(jnp.bfloat16)  # [NB, block, block]
-        dots = jnp.einsum(
-            "nij,njf->nif", tiles, x_pad[d : d + nb],
-            preferred_element_type=jnp.float32,
-        )
-        out = out + q.scales[:, d, None, None] * dots
-    return out.reshape(nb * block, F)[: q.num_nodes]
+    """Numpy model of the quantized product: dequantized band @
+    bf16-rounded x, accumulated in float64."""
+    xb = np.asarray(jnp.asarray(x[: q.num_nodes]).astype(jnp.bfloat16),
+                    np.float64)
+    return _dense_dequantized(q) @ xb
 
 
 class TestQuantize:
@@ -74,27 +81,27 @@ class TestQuantize:
 
 
 class TestQuantKernel:
-    @pytest.mark.parametrize("rows_per_step", [1, 4, 8])
-    def test_matches_emulation(self, cpu_devices, rows_per_step):
-        a, x = _banded()
+    @pytest.mark.parametrize("n,block", GEOMETRIES)
+    def test_matches_emulation(self, cpu_devices, n, block):
+        a, x = _banded(n=n, block=block)
         q = quantize_band(a)
-        want = np.asarray(_emulate(q, x))
-        got = np.asarray(
-            banded_spmm_quant(
-                q, x, rows_per_step=rows_per_step, interpret=True
-            )
-        )
+        want = _emulate(q, x)
+        got = np.asarray(banded_spmm_quant(q, x))
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
-    def test_non_divisor_panel_clamps(self, cpu_devices):
-        # 640 nodes / block 64 → nb = 10; rows_per_step 4 clamps to 2
-        a, x = _banded(n=640, block=64)
+    def test_block_diagonal_band(self, cpu_devices):
+        # every edge inside its own block: W = 0, one diagonal
+        g = generate_spatial_graph(512, degree=6, band=40, num_features=16,
+                                   seed=5)
+        s, r = g.edge_index
+        keep = s // 128 == r // 128
+        a = to_banded(s[keep], r[keep], g.edge_weight[keep], 512, block=128)
+        x = jnp.asarray(g.node_features)
         q = quantize_band(a)
-        got = np.asarray(
-            banded_spmm_quant(q, x, rows_per_step=4, interpret=True)
-        )
+        assert q.bandwidth == 0
         np.testing.assert_allclose(
-            got, np.asarray(_emulate(q, x)), rtol=1e-5, atol=1e-5
+            np.asarray(banded_spmm_quant(q, x)), _emulate(q, x),
+            rtol=1e-5, atol=1e-5,
         )
 
     def test_ragged_tail(self, cpu_devices):
@@ -102,7 +109,7 @@ class TestQuantKernel:
         a, x = _banded(n=600, block=64)
         q = quantize_band(a)
         assert q.num_nodes == 600
-        got = np.asarray(banded_spmm_quant(q, x, interpret=True))
+        got = np.asarray(banded_spmm_quant(q, x))
         assert got.shape == (600, x.shape[1])
         np.testing.assert_allclose(
             got, np.asarray(_emulate(q, x)), rtol=1e-5, atol=1e-5
@@ -115,7 +122,7 @@ class TestQuantKernel:
         a, x = _banded()
         q = quantize_band(a)
         f32 = np.asarray(banded_spmm(a, x))
-        quant = np.asarray(banded_spmm_quant(q, x, interpret=True))
+        quant = np.asarray(banded_spmm_quant(q, x))
 
         rel = np.linalg.norm(quant - f32) / np.linalg.norm(f32)
         assert rel < 1e-2, f"relative error {rel:.2e}"
@@ -160,29 +167,24 @@ class TestQuantKernel:
         )
         x = jnp.asarray(g.node_features)
         hq = quantize_hybrid(h)
-        got = np.asarray(hybrid_spmm_quant(hq, x, interpret=True))
+        got = np.asarray(hybrid_spmm_quant(hq, x))
         want = np.asarray(hybrid_spmm(h, x))
         rel = np.linalg.norm(got - want) / np.linalg.norm(want)
         assert rel < 1e-2, rel
 
 
 class TestFeatureMajorKernel:
-    """Manual-DMA feature-major kernel (banded_spmm_quant_fm): identical
-    arithmetic to the row-major kernel, activations as [F, N]."""
+    """Feature-major product (banded_spmm_quant_fm): identical arithmetic
+    to the row-major one, activations as [F, N]."""
 
-    @pytest.mark.parametrize("rows_per_step", [2, 8, 16])
-    def test_matches_rowmajor(self, cpu_devices, rows_per_step):
+    @pytest.mark.parametrize("n,block", GEOMETRIES)
+    def test_matches_rowmajor(self, cpu_devices, n, block):
         from connectome_gnn_jax.ops import banded_spmm_quant_fm, to_feature_major
 
-        a, x = _banded()
+        a, x = _banded(n=n, block=block)
         q = quantize_band(a)
-        want = np.asarray(banded_spmm_quant(q, x, interpret=True))
-        got = np.asarray(
-            banded_spmm_quant_fm(
-                to_feature_major(q), x.T,
-                rows_per_step=rows_per_step, interpret=True,
-            ).T
-        )
+        want = np.asarray(banded_spmm_quant(q, x))
+        got = np.asarray(banded_spmm_quant_fm(to_feature_major(q), x.T).T)
         # same quantized arithmetic; only f32 accumulation order differs
         # between the transposed and row-major contractions
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
@@ -193,7 +195,7 @@ class TestFeatureMajorKernel:
         a, x = _banded(n=600, block=64)
         q = quantize_band(a)
         got = np.asarray(
-            banded_spmm_quant_fm(to_feature_major(q), x.T, interpret=True)
+            banded_spmm_quant_fm(to_feature_major(q), x.T)
         )
         assert got.shape == (x.shape[1], 600)
         np.testing.assert_allclose(
@@ -207,7 +209,7 @@ class TestTransposeQuantized:
         max-abs is transpose-invariant, so the int8 payloads and f32
         scales must match bit-for-bit (this identity is what lets
         training prep transpose the int8 band instead of the f32 one,
-        ~4× less peak HBM at 1M nodes)."""
+        ~4× less peak device memory)."""
         from connectome_gnn_jax.ops import transpose_quantized
         from connectome_gnn_jax.ops.banded import transpose_banded
 
@@ -223,10 +225,9 @@ class TestTransposeQuantized:
 
 
 class TestW8A8Kernel:
-    """int8-band × int8-activation kernel (banded_spmm_quant_fm_w8a8):
-    the 97%-of-roofline serving kernel (FM_DIAG_r03.json).  Adds a
-    per-column-block activation rounding (~0.4% per entry) on top of the
-    band quantization bound."""
+    """int8-band × int8-activation product (banded_spmm_quant_fm_w8a8).
+    Adds a per-column-block activation rounding (~0.4% per entry) on top
+    of the band quantization bound."""
 
     def test_matches_w8a8_emulation(self, cpu_devices):
         from connectome_gnn_jax.ops import (
@@ -255,7 +256,7 @@ class TestW8A8Kernel:
         want = np.asarray(banded_spmm(dequantize_band(q), x_deq))
 
         got = np.asarray(
-            banded_spmm_quant_fm_w8a8(q_fm, jnp.asarray(x.T), interpret=True)
+            banded_spmm_quant_fm_w8a8(q_fm, jnp.asarray(x.T))
         ).T
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
@@ -270,7 +271,7 @@ class TestW8A8Kernel:
         q_fm = to_feature_major(quantize_band(a))
         want = np.asarray(banded_spmm(a, x))
         got = np.asarray(
-            banded_spmm_quant_fm_w8a8(q_fm, jnp.asarray(x.T), interpret=True)
+            banded_spmm_quant_fm_w8a8(q_fm, jnp.asarray(x.T))
         ).T
         rel = np.linalg.norm(got - want) / np.linalg.norm(want)
         assert rel < 3e-2, rel
@@ -285,7 +286,7 @@ class TestW8A8Kernel:
         a, x = _banded(n=600, block=64)
         q_fm = to_feature_major(quantize_band(a))
         got = np.asarray(
-            banded_spmm_quant_fm_w8a8(q_fm, jnp.asarray(x.T), interpret=True)
+            banded_spmm_quant_fm_w8a8(q_fm, jnp.asarray(x.T))
         )
         assert got.shape == (x.shape[1], 600)
         want = np.asarray(banded_spmm(a, x))
@@ -306,7 +307,7 @@ class TestW8A8Kernel:
         want, _ = model.apply(params, state, a, x, train=False)
         adj_q, dinv = model.prepare_quantized(a)
         got, _ = model.apply_quantized(
-            params, state, adj_q, dinv, x, w8a8=True, interpret=True
+            params, state, adj_q, dinv, x, w8a8=True
         )
         rel = float(jnp.linalg.norm(got - want) / jnp.linalg.norm(want))
         assert rel < 8e-2, rel
@@ -326,7 +327,7 @@ class TestW8A8Kernel:
         with pytest.raises(ValueError):
             model.apply_quantized(
                 params, state, adj_q, dinv,
-                jnp.asarray(g.node_features), w8a8=True, interpret=True,
+                jnp.asarray(g.node_features), w8a8=True,
             )
 
 
@@ -358,7 +359,7 @@ class TestQuantizedServing:
         want, _ = model.apply(params, state, a, x, train=False)
         adj_q, dinv = model.prepare_quantized(a)
         got, _ = model.apply_quantized(
-            params, state, adj_q, dinv, x, interpret=True
+            params, state, adj_q, dinv, x
         )
         rel = float(jnp.linalg.norm(got - want) / jnp.linalg.norm(want))
         assert rel < 5e-2, rel
@@ -382,7 +383,7 @@ class TestQuantizedServing:
         want, _ = model.apply(params, state, a, x, train=False)
         adj_q, w_sum = model.prepare_quantized(a)
         got, _ = model.apply_quantized(
-            params, state, adj_q, w_sum, x, interpret=True
+            params, state, adj_q, w_sum, x
         )
         rel = float(jnp.linalg.norm(got - want) / jnp.linalg.norm(want))
         assert rel < 5e-2, rel
@@ -408,10 +409,10 @@ class TestQuantizedServing:
         q_fm, dinv = model.prepare_quantized(a)
         q_rm, _ = model.prepare_quantized(a, feature_major=False)
         got_fm, _ = model.apply_quantized(
-            params, state, q_fm, dinv, x, interpret=True
+            params, state, q_fm, dinv, x
         )
         got_rm, _ = model.apply_quantized(
-            params, state, q_rm, dinv, x, interpret=True
+            params, state, q_rm, dinv, x
         )
         np.testing.assert_allclose(
             np.asarray(got_fm), np.asarray(got_rm), rtol=1e-4, atol=1e-4
@@ -421,14 +422,14 @@ class TestQuantizedServing:
         a, x = _banded()
         q = quantize_band(a)
         xla = np.asarray(banded_spmm_quant_xla(q, x))
-        ker = np.asarray(banded_spmm_quant(q, x, interpret=True))
+        ker = np.asarray(banded_spmm_quant(q, x))
         # differ only in activation precision (f32 vs bf16)
         np.testing.assert_allclose(ker, xla, rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.slow
 class TestQuantTrainable:
-    """The int8-band TRAINING path: custom-VJP kernel + model gradients."""
+    """The int8-band TRAINING path: custom-VJP product + model gradients."""
 
     def _setup(self, n=640, block=64, feat=16):
         from connectome_gnn_jax.ops import gcn_normalize_banded
@@ -450,8 +451,8 @@ class TestQuantTrainable:
         q = to_feature_major(quantize_band(adj_norm))
         qT = quantize_transposed_fm(adj_norm)
         xT = jnp.asarray(x).T
-        out = banded_spmm_quant_fm_grad(q, qT, xT, interpret=True)
-        ref = banded_spmm_quant_fm(q, xT, interpret=True)
+        out = banded_spmm_quant_fm_grad(q, qT, xT)
+        ref = banded_spmm_quant_fm(q, xT)
         np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
     def test_gradient_matches_f32_oracle_within_quant_bound(self, cpu_devices):
@@ -476,7 +477,7 @@ class TestQuantTrainable:
 
         def loss_q(v):
             return jnp.sum(
-                banded_spmm_quant_fm_grad(q, qT, v, interpret=True) * cot
+                banded_spmm_quant_fm_grad(q, qT, v) * cot
             )
 
         def loss_f(v):
@@ -505,8 +506,7 @@ class TestQuantTrainable:
 
         def loss_quant(p):
             logits, _ = model.apply_quant_trainable(
-                p, state, q, qT, dinv, jnp.asarray(x), train=True,
-                interpret=True,
+                p, state, q, qT, dinv, jnp.asarray(x), train=True
             )
             return jnp.mean(
                 optax.softmax_cross_entropy_with_integer_labels(logits, labels)
@@ -534,7 +534,7 @@ class TestQuantTrainable:
 
     def test_eval_mode_matches_serving_forward(self, cpu_devices):
         """train=False through apply_quant_trainable == the serving
-        apply_quantized fm path (same kernel, same eval BN)."""
+        apply_quantized fm path (same product, same eval BN)."""
         import jax
         from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
 
@@ -544,10 +544,9 @@ class TestQuantTrainable:
         q, qT, dinv = model.prepare_quant_trainable(a)
         train_path, _ = model.apply_quant_trainable(
             params, state, q, qT, dinv, jnp.asarray(x), train=False,
-            interpret=True,
-        )
+                    )
         serve_path, _ = model.apply_quantized(
-            params, state, q, dinv, jnp.asarray(x), interpret=True
+            params, state, q, dinv, jnp.asarray(x)
         )
         np.testing.assert_allclose(
             np.asarray(train_path), np.asarray(serve_path),
@@ -592,153 +591,10 @@ class TestQuantTrainable:
             return losses
 
         l_q = run(lambda p, s: model.apply_quant_trainable(
-            p, s, q, qT, dinv, jnp.asarray(x), train=True, interpret=True
+            p, s, q, qT, dinv, jnp.asarray(x), train=True
         ))
         l_f = run(lambda p, s: model.apply_normalized(
             p, s, adj_norm, dinv, jnp.asarray(x), train=True
         ))
         assert l_q[-1] < l_q[0]  # learning
         assert abs(l_q[-1] - l_f[-1]) < 0.05, (l_q, l_f)
-
-
-class TestBlockedTrainable:
-    """The contiguous-DMA blocked training path (FM_DIAG_r03 fm_blocked
-    promoted to product): same quantized operands and per-tile dots as
-    the fm kernel, only the DMA layout differs — so forward, VJP, and
-    whole-model outputs must match the fm path tightly."""
-
-    def _setup(self, n=640, block=64, feat=16):
-        from connectome_gnn_jax.ops import gcn_normalize_banded
-
-        a, x = _banded(seed=2, n=n, block=block, feat=feat)
-        adj_norm, dinv = gcn_normalize_banded(a)
-        return a, adj_norm, dinv, x
-
-    def test_forward_matches_fm_kernel(self, cpu_devices):
-        from connectome_gnn_jax.ops.banded_quant import (
-            banded_spmm_quant_blocked,
-            banded_spmm_quant_fm,
-            from_blocked,
-            quantize_band,
-            to_blocked,
-            to_feature_major,
-        )
-
-        _, adj_norm, _, x = self._setup()
-        q = to_feature_major(quantize_band(adj_norm))
-        block, nb, W = q.block, q.num_blocks, q.bandwidth
-        xT = jnp.asarray(x).T
-        ref = np.asarray(banded_spmm_quant_fm(q, xT, interpret=True))
-
-        xT_pad = jnp.zeros((xT.shape[0], (nb + 2 * W) * block), jnp.float32)
-        xT_pad = jax.lax.dynamic_update_slice(
-            xT_pad, xT[:, : q.num_nodes], (0, W * block)
-        )
-        out_b = banded_spmm_quant_blocked(
-            q, to_blocked(xT_pad, block), interpret=True
-        )
-        got = np.asarray(from_blocked(out_b))[:, : q.num_nodes]
-        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
-
-    def test_vjp_matches_fm_path(self, cpu_devices):
-        from connectome_gnn_jax.ops.banded_quant import (
-            banded_spmm_quant_blocked_grad,
-            banded_spmm_quant_fm_grad,
-            from_blocked,
-            quantize_band,
-            quantize_transposed_fm,
-            to_blocked,
-            to_feature_major,
-        )
-
-        _, adj_norm, _, x = self._setup()
-        q = to_feature_major(quantize_band(adj_norm))
-        qT = quantize_transposed_fm(adj_norm)
-        block, nb, W = q.block, q.num_blocks, q.bandwidth
-        padded = nb * block
-        xT = jnp.asarray(x).T
-        xp = jnp.zeros((xT.shape[0], padded), jnp.float32)
-        xp = jax.lax.dynamic_update_slice(xp, xT[:, : q.num_nodes], (0, 0))
-        xb = to_blocked(xp, block)
-        cot = jnp.asarray(
-            np.random.default_rng(3).standard_normal(
-                (nb, xT.shape[0], block)
-            ),
-            jnp.float32,
-        )
-
-        def loss_b(v):
-            return jnp.sum(
-                banded_spmm_quant_blocked_grad(q, qT, v, interpret=True)
-                * cot
-            )
-
-        cot_fm = from_blocked(cot)[:, : q.num_nodes]
-
-        def loss_fm(vT):
-            return jnp.sum(
-                banded_spmm_quant_fm_grad(q, qT, vT, interpret=True)
-                * cot_fm
-            )
-
-        lb, gb = jax.value_and_grad(loss_b)(xb)
-        lf, gf = jax.value_and_grad(loss_fm)(xT)
-        np.testing.assert_allclose(float(lb), float(lf), rtol=1e-5)
-        g_b_fm = np.asarray(from_blocked(gb))[:, : q.num_nodes]
-        np.testing.assert_allclose(
-            g_b_fm, np.asarray(gf)[:, : q.num_nodes], rtol=1e-5, atol=1e-6
-        )
-
-    def test_model_matches_fm_trainable(self, cpu_devices):
-        import optax
-        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
-
-        a, _, _, x = self._setup()
-        model = BandedNodeGCN(in_channels=16, hidden_dim=16, num_layers=2)
-        params, state = model.init(jax.random.PRNGKey(0))
-        q, qT, dinv = model.prepare_quant_trainable(a)
-        labels = jnp.asarray(
-            np.random.default_rng(4).integers(0, 2, a.num_nodes), jnp.int32
-        )
-
-        def loss(p, fn):
-            logits, _ = fn(
-                p, state, q, qT, dinv, jnp.asarray(x), train=True,
-                interpret=True,
-            )
-            return jnp.mean(
-                optax.softmax_cross_entropy_with_integer_labels(
-                    logits, labels
-                )
-            )
-
-        lb, gb = jax.value_and_grad(loss)(
-            params, model.apply_quant_trainable_blocked
-        )
-        lf, gf = jax.value_and_grad(loss)(params, model.apply_quant_trainable)
-        np.testing.assert_allclose(float(lb), float(lf), rtol=1e-5)
-        for a_, b_ in zip(
-            jax.tree_util.tree_leaves(gb), jax.tree_util.tree_leaves(gf)
-        ):
-            np.testing.assert_allclose(
-                np.asarray(a_), np.asarray(b_), rtol=1e-4, atol=1e-6
-            )
-
-    def test_blocked_logits_match_fm_eval(self, cpu_devices):
-        from connectome_gnn_jax.models.node_gcn import BandedNodeGCN
-
-        a, _, _, x = self._setup()
-        model = BandedNodeGCN(in_channels=16, hidden_dim=16, num_layers=2)
-        params, state = model.init(jax.random.PRNGKey(0))
-        q, qT, dinv = model.prepare_quant_trainable(a)
-        lb, _ = model.apply_quant_trainable_blocked(
-            params, state, q, qT, dinv, jnp.asarray(x), train=False,
-            interpret=True,
-        )
-        lf, _ = model.apply_quant_trainable(
-            params, state, q, qT, dinv, jnp.asarray(x), train=False,
-            interpret=True,
-        )
-        np.testing.assert_allclose(
-            np.asarray(lb), np.asarray(lf), rtol=1e-5, atol=1e-6
-        )

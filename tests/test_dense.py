@@ -1,4 +1,4 @@
-"""Dense MXU-path tests: layout equivalence with the COO path."""
+"""Dense matmul-path tests: layout equivalence with the COO path."""
 
 import numpy as np
 import jax

@@ -1,8 +1,8 @@
 """Fused native sample→collate path (single-transfer minibatch ingest).
 
-The fused path exists because honest end-to-end sampled training is
-host-bound (SUITE_r03.json config S: ~86 ms/step at 1M nodes while the
-device step is ~1 ms; breakdown in ``benchmarks/profile_sampled.py``).
+The fused path exists because end-to-end sampled training with a
+host-built batch is host-bound (breakdown in
+``benchmarks/profile_sampled.py``).
 It must produce batches equivalent to the classic
 ``NeighborSampler.sample`` + ``collate_sampled`` pipeline: identical
 sampled subgraph per seed (same splitmix64 stream), identical node order

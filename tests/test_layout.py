@@ -55,8 +55,12 @@ def _coo_oracle(graph, x):
 
 
 class TestPlanLayout:
+    # Degree 16, as in the config-5 graphs: at degree 8 a 128-node block
+    # band holds so few edges per tile that, at the default (measured)
+    # costs, scattering them is as cheap as streaming the tiles, and the
+    # planner rightly leaves edges in the remainder.
     def test_scrambled_band_recovers_locality(self):
-        g = generate_spatial_graph(4096, degree=8, band=128, seed=0)
+        g = generate_spatial_graph(4096, degree=16, band=128, seed=0)
         gs, _ = _scramble(g)
         plan = plan_layout(
             gs.edge_index[0], gs.edge_index[1], gs.num_nodes, block=128
@@ -69,7 +73,7 @@ class TestPlanLayout:
 
     def test_small_world_picks_hybrid_and_reports_remainder(self):
         g = generate_spatial_graph(
-            4096, degree=8, band=128, seed=1, shortcut_frac=0.1
+            4096, degree=16, band=128, seed=1, shortcut_frac=0.1
         )
         gs, _ = _scramble(g)
         plan = plan_layout(

@@ -166,7 +166,7 @@ class TestActivationParity:
 
 class TestDirectKernelParity:
     """Close the parity chain's transitive links (round-1 review, Weak #5):
-    reference torch weights transplanted STRAIGHT into the fused Pallas
+    reference torch weights transplanted STRAIGHT into the fused
     kernels and into the RCM-ordered banded/hybrid path — no intermediate
     oracle in between."""
 
@@ -176,7 +176,7 @@ class TestDirectKernelParity:
         ids=["gcn", "sage"],
     )
     def test_torch_to_fused_logits(self, ref_cls, kernel_name):
-        """torch eval logits == fused Pallas kernel logits (same weights,
+        """torch eval logits == fused kernel logits (same weights,
         same subjects, dense layout, interpret mode)."""
         import connectome_gnn_jax.ops.fused_pallas as fp
         from connectome_gnn_jax.data import collate_dense
